@@ -4,24 +4,35 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and prints no result:
-  1. build the CUDA kernel library from dodt_tpu_torch/csrc (nvcc, sm_90a);
+  1. build the CUDA kernel library from dodt_tpu_torch/csrc (nvcc, sm_90a,
+     one compiler process per source, all started together);
   2. hold each kernel against its plain PyTorch twin on the card at the
-     shapes the streaming keyframe path gives it, and time both with
-     CUDA events after warm-up;
+     shapes the model paths give it (and B4 at the public op's), and time
+     both with CUDA events after warm-up; B4's gradient route against the
+     twin's autograd;
   3. run the full-width cars_dt_tracking slice (seeded random weights,
      bench.make_batch inputs, 65536 points) through StreamingPredictor on
      the static arm and the ego-motion arm; outputs must be finite and
      shaped, and every kernel's launch counter, zeroed just before, must
      have grown;
   4. run a small config on the card and on the CPU with the same weights
-     and compare the frame state and the final detections.
+     and compare the frame state and the final detections;
+  5. run the full-width monolithic pair forward (DtAvodNet.forward, B = 1,
+     F = 2, the bench inputs) and time it; outputs must be finite and
+     shaped, and B1, B2 and B3's counters, zeroed just before, must grow;
+     then drive B4's public op (correlation, through correlation_cf) on the
+     full-width BEV feature shape with the counters zeroed again;
+  6. run the monolithic forward of the small config at B = 2 on the card
+     and on the CPU with the same weights and compare them.
 
 TF32 is off for the whole run (cuDNN and cuBLAS), so every f32 op on the
 card is a full f32 op and the comparisons measure the kernels alone.
 
 The second-to-last line of stdout holds the card's name and power limit,
-the line before it one JSON object with each kernel's launches, error
-and times; the last line is {"ok": true, "device": {...}}.
+the line before it one JSON object with each kernel's launches (on the
+path that runs it: B1-B3 the streaming slice, with the monolithic
+forward's count beside it; B4 its public ops), error and times; the last
+line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -114,6 +125,15 @@ def kernel_checks(dev):
             h = torch.relu(torch.nn.functional.conv2d(h, w, b, padding=1))
         return h
 
+    # the monolithic forward hands B1 both frames of a couple at once
+    x2 = torch.relu(torch.randn((2, 88, 100, 128), generator=g)).to(
+        dev, torch.bfloat16)
+    e, scale = rel_err(cc.conv_chain(x2, ws, bs), cc.conv_chain_plain(x2, ws,
+                                                                      bs))
+    log(f"B1 conv_chain {tuple(x2.shape)}: max_abs_err {e:.4g} "
+        f"(max |ref| {scale:.4g})")
+    check(e <= 2e-2 * scale, f"conv_chain at batch 2 disagrees: {e}")
+    del x2
     log("B1 context: cuDNN bf16 chain "
         f"{sum(cuda_time_ms(lambda x=x: cudnn_chain(x)) for x in xs):.4f} ms")
     res["conv_chain"] = {
@@ -174,6 +194,38 @@ def kernel_checks(dev):
         "ms": cuda_time_ms(lambda: corr.corr_bottleneck(a, b, w, 5)),
         "plain_ms": cuda_time_ms(
             lambda: corr.corr_bottleneck_plain(a, b, w, 5))}
+
+    # B4: the raw volume, (1, 350, 400, 32) f32, d = 5 -> (1, 121, 350, 400)
+    # (67.8 MB), and a batched stride_2 = 2 case. f32 sums of C products in
+    # another order: 1e-5 of the range.
+    err = 0.0
+    for aa, bb, s2 in ((a, b, 1), (torch.randn((2, 64, 96, 32), generator=g
+                                               ).to(dev),
+                                   torch.randn((2, 64, 96, 32), generator=g
+                                               ).to(dev), 2)):
+        got = corr.correlation_cf(aa, bb, 5, s2)
+        want = corr.correlation_cf_plain(aa, bb, 5, s2)
+        check(got.shape == want.shape, f"correlation_cf shape {got.shape}")
+        e, scale = rel_err(got, want)
+        del got, want
+        log(f"B4 correlation_cf {tuple(aa.shape)} stride_2 {s2}: "
+            f"max_abs_err {e:.4g} (max |ref| {scale:.4g})")
+        check(e <= 1e-5 * scale, f"correlation_cf disagrees: {e}")
+        err = max(err, e)
+    # the CUDA route's gradients are the twin's autograd
+    ga, gb = (torch.randn((1, 20, 24, 8), generator=g).to(dev)
+              .requires_grad_() for _ in range(2))
+    pa, pb = (t.detach().clone().requires_grad_() for t in (ga, gb))
+    gw = torch.randn((1, 121, 20, 24), generator=g).to(dev)
+    (corr.correlation_cf(ga, gb, 5) * gw).sum().backward()
+    (corr.correlation_cf_plain(pa, pb, 5) * gw).sum().backward()
+    e_grad = max(rel_err(ga.grad, pa.grad)[0], rel_err(gb.grad, pb.grad)[0])
+    log(f"B4 gradient w.r.t. a and b vs the twin's: max_abs_err {e_grad:.4g}")
+    check(e_grad <= 1e-5, f"correlation_cf gradient disagrees: {e_grad}")
+    res["correlation_cf"] = {
+        "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: corr.correlation_cf(a, b, 5)),
+        "plain_ms": cuda_time_ms(lambda: corr.correlation_cf_plain(a, b, 5))}
     for name, r in res.items():
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     return res
@@ -211,21 +263,30 @@ def check_outputs(out, k_final):
             check(bool(torch.isfinite(v).all()), f"{key} not finite")
 
 
-def full_slice(dev, counters):
-    """Full-width cars_dt_tracking keyframes on both arms."""
+def full_width(dev):
+    """cars_dt_tracking at 65536 points on the card, seeded weights, and
+    bench.make_batch's couple (host arrays)."""
     import torch
     from bench import make_batch
     from dodt_tpu.config import cars_dt_tracking
     from dodt_tpu.data.clusters import DEFAULT_CAR_CLUSTERS
     from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
-    from dodt_tpu_torch.runtime.predictor import StreamingPredictor
 
     cfg = cars_dt_tracking()
     cfg.dataset.max_points = 65536
     model = DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS)
     init_params(model, torch.Generator().manual_seed(0))
-    model = model.to(dev).eval()
-    frames = frames_of(make_batch(cfg, np.random.RandomState(0)))
+    return cfg, model.to(dev).eval(), make_batch(cfg,
+                                                 np.random.RandomState(0))
+
+
+def full_slice(cfg, model, batch, counters):
+    """Full-width cars_dt_tracking keyframes on both arms."""
+    import torch
+    from dodt_tpu_torch.runtime.predictor import StreamingPredictor
+
+    dev = next(model.parameters()).device
+    frames = frames_of(batch)
     pred = StreamingPredictor(model)
 
     for c in counters:
@@ -369,6 +430,138 @@ def cuda_vs_cpu(dev):
         check(boxes >= 0.9, f"{arm}: final boxes CUDA vs CPU matched {boxes}")
 
 
+# ---------------------------------------------------------------- phase 5
+
+# every output of the JAX DtAvodNet.__call__ in val mode
+FORWARD_KEYS = (
+    "anchors", "anchor_valid", "bev_input", "img_mask", "bev_mask",
+    "objectness", "rpn_offsets", "top_anchors", "top_scores", "top_valid",
+    "proposal_boxes_3d", "proposal_enc", "cls_logits", "box_offsets",
+    "angle_vectors", "pred_boxes_3d", "pred_orientations", "final_indices",
+    "final_valid", "final_boxes_3d", "final_orientations",
+    "final_cls_softmax", "final_scores", "corr_pred", "final_corr_offsets")
+
+
+def check_forward(out, b, cfg):
+    import torch
+    m = cfg.model
+    k, k_final = m.rpn.test_nms_size, m.avod.nms_size
+    check(set(out) == set(FORWARD_KEYS), f"forward keys {sorted(out)}")
+    shapes = {"top_anchors": (b, 2, k, 6), "top_valid": (b, 2, k),
+              "cls_logits": (b, 2, k, len(cfg.dataset.classes) + 1),
+              "corr_pred": (b, k, 3), "final_boxes_3d": (b, 2, k_final, 7),
+              "final_scores": (b, 2, k_final),
+              "final_valid": (b, 2, k_final),
+              "final_corr_offsets": (b, k_final, 3)}
+    for key, shape in shapes.items():
+        check(tuple(out[key].shape) == shape,
+              f"{key} shape {tuple(out[key].shape)}")
+    for key, v in out.items():
+        if v is not None and v.is_floating_point():
+            check(bool(torch.isfinite(v).all()), f"{key} not finite")
+
+
+def pair_forward(cfg, model, batch, counters):
+    """The full-width monolithic forward, B = 1 couple: launches of B1-B3
+    in this phase alone, and bench.py's pair_latency_ms methodology
+    (warm-up, N_TIMED calls, one sync), median of three rounds."""
+    import torch
+    dev = next(model.parameters()).device
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    for c in counters:
+        c.launches = 0
+    out = model(tb)
+    torch.cuda.synchronize()
+    check_forward(out, 1, cfg)
+    n_valid = int(out["final_valid"].sum())
+    for _ in range(N_WARM - 1):
+        model(tb)
+    rounds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_TIMED):
+            out = model(tb)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) / N_TIMED * 1e3)
+    check_forward(out, 1, cfg)
+    launches = {c.symbol: c.launches for c in counters}
+    log(f"pair forward: ms per round {rounds}, valid finals {n_valid}, "
+        f"launches {launches}")
+    for sym, n in launches.items():
+        check(n > 0, f"kernel {sym} was not launched by the pair forward")
+    return float(np.median(rounds)), launches
+
+
+def correlation_op(dev, counter):
+    """B4's own path: the public ops on two full-width BEV feature maps."""
+    import torch
+    from dodt_tpu_torch.ops import correlation as corr
+    g = torch.Generator().manual_seed(3)
+    a, b = (torch.randn((1, 350, 400, 32), generator=g).to(dev)
+            for _ in range(2))
+    counter.launches = 0
+    vol = corr.correlation(a, b, 5)
+    torch.cuda.synchronize()
+    launches = counter.launches
+    check(tuple(vol.shape) == (1, 350, 400, 121), f"correlation {vol.shape}")
+    check(bool(torch.isfinite(vol).all()), "correlation not finite")
+    # the centre displacement is the plain per-pixel dot product / C
+    centre = (a * b).sum(-1) / 32
+    e, scale = rel_err(vol[..., 60], centre)
+    log(f"B4 public op: {launches} launches, centre displacement vs "
+        f"sum(a * b) / C max_abs_err {e:.4g} (max |ref| {scale:.4g})")
+    check(launches > 0, "correlation launched no kernel")
+    check(e <= 1e-5 * scale, f"correlation centre displacement {e}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+def forward_cuda_vs_cpu(dev):
+    """The small config's monolithic forward at B = 2 on the card against
+    the same forward on the CPU (B1 at batch 4, B2 over 4 maps)."""
+    import copy
+    import torch
+    from bench import make_batch
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+
+    cfg = small_cfg()
+    cpu_model = DtAvodNet(cfg, ((3.9, 1.6, 1.52),))
+    init_params(cpu_model, torch.Generator().manual_seed(1))
+    cpu_model.eval()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    parts = [make_batch(cfg, np.random.RandomState(s)) for s in (1, 2)]
+    host = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    og = gpu_model({k: torch.as_tensor(v, device=dev)
+                    for k, v in host.items()})
+    oc = cpu_model({k: torch.as_tensor(v) for k, v in host.items()})
+    check_forward(og, 2, cfg)
+    e, scale = rel_err(og["bev_input"].cpu(), oc["bev_input"])
+    log(f"forward bev_input CUDA vs CPU: max_abs_err {e:.4g}")
+    check(e <= 1e-5 * max(scale, 1.0), f"bev_input CUDA vs CPU {e}")
+    check(torch.equal(og["anchor_valid"].cpu(), oc["anchor_valid"]),
+          "anchor_valid CUDA vs CPU differ")
+    for b in range(2):
+        for f in range(2):
+            top = matched_fraction(
+                og["top_anchors"][b, f], oc["top_anchors"][b, f],
+                og["top_valid"][b, f].cpu(), oc["top_valid"][b, f], 0.05)
+            vg = og["final_valid"][b, f].cpu()
+            vc = oc["final_valid"][b, f]
+            fin = matched_fraction(og["final_boxes_3d"][b, f],
+                                   oc["final_boxes_3d"][b, f], vg, vc, 0.1)
+            log(f"forward couple {b} frame {f}: top_anchors matched "
+                f"{top:.3f}, valid finals cuda {int(vg.sum())} cpu "
+                f"{int(vc.sum())}, final boxes matched {fin:.3f}")
+            # as in phase 4: bf16 rounding noise may reorder near-tied
+            # scores and move a few proposals, and with them finals
+            check(top >= 0.9, f"couple {b} frame {f}: top_anchors {top}")
+            check(abs(int(vg.sum()) - int(vc.sum())) <= max(2, vc.sum() // 10),
+                  f"couple {b} frame {f}: valid final counts differ")
+            check(fin >= 0.8, f"couple {b} frame {f}: final boxes {fin}")
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -397,7 +590,10 @@ def main():
                               roi_window._KERNEL),
                "corr_bottleneck": ("dodt_tpu_torch/csrc/correlation.cu",
                                    "dodt_tpu/ops/correlation.py:214",
-                                   correlation._KERNEL)}
+                                   correlation._KERNEL),
+               "correlation_cf": ("dodt_tpu_torch/csrc/correlation_cf.cu",
+                                  "dodt_tpu/ops/correlation.py:110",
+                                  correlation._CF_KERNEL)}
     try:
         t0 = time.perf_counter()
         lib, compiler_output = _cuda.build()
@@ -406,10 +602,17 @@ def main():
             f"{time.perf_counter() - t0:.1f} s\n{compiler_output}")
         kern = kernel_checks(dev)
         log("phase 2: kernels agree with their twins")
-        times, launches = full_slice(dev, counters)
+        cfg, model, batch = full_width(dev)
+        times, launches = full_slice(cfg, model, batch, counters)
         log("phase 3: full-width slice ran on both arms")
         cuda_vs_cpu(dev)
         log("phase 4: CUDA slice agrees with the CPU slice")
+        pair_ms, fwd_launches = pair_forward(cfg, model, batch, counters)
+        del model
+        op_launches = correlation_op(dev, correlation._CF_KERNEL)
+        log("phase 5: full-width pair forward and B4's public op ran")
+        forward_cuda_vs_cpu(dev)
+        log("phase 6: CUDA pair forward agrees with the CPU forward")
     except PhaseError as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1
@@ -423,9 +626,16 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     for arm in ("static", "ego"):
         print(f"steady keyframe ms ({arm} arm): {times[arm]:.4f} on {card}")
+    print(f"pair_latency_ms: {pair_ms:.4f} on {card}")
+    launches_by_path = {k.symbol: {"stream": launches[k.symbol],
+                                   "pair_forward": fwd_launches[k.symbol]}
+                        for k in counters}
+    launches_by_path[correlation._CF_KERNEL.symbol] = {
+        "correlation_op": op_launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k.symbol],
+         "launches": launches.get(k.symbol, op_launches),
+         "launches_by_path": launches_by_path[k.symbol],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"]}
         for name, (src, rep, k) in sources.items()]}))

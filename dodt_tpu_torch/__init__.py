@@ -3,14 +3,14 @@
 Mirrors the JAX package module for module (``ops/``, ``models/``,
 ``runtime/``) and is held against it by the ``tests/test_torch_*.py``
 parity tests. Public functions keep the JAX package's NHWC layout.
-The three Pallas kernels on the streaming keyframe path are hand-written
-CUDA kernels for Hopper (``csrc/``), each with a plain PyTorch twin in
-the same module; the twin runs for CPU tensors, the kernel for CUDA
-tensors.
+All four Pallas kernels of the JAX package are hand-written CUDA kernels
+for Hopper (``csrc/``), each with a plain PyTorch twin in the same
+module; the twin runs for CPU tensors, the kernel for CUDA tensors.
 
-This package imports ``torch`` and never ``jax`` or ``flax``. Host
-modules of ``dodt_tpu`` that never import JAX (``dodt_tpu.config``,
-``dodt_tpu.data.clusters``) are shared by import.
+This package imports ``torch`` and never ``jax``, ``flax`` or ``orbax``.
+Host modules of ``dodt_tpu`` that never import JAX (``dodt_tpu.config``,
+``dodt_tpu.eval.decode``, ``dodt_tpu.utils.metrics``) are shared by
+import.
 """
 
 __version__ = "0.1.0"

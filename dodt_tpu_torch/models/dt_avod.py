@@ -1,5 +1,7 @@
-"""Paired-frame DODT detector, streaming eval path (PyTorch port of
-dodt_tpu/models/dt_avod.py: ``encode_frame`` and ``pair_stage``).
+"""Paired-frame DODT detector, eval paths (PyTorch port of
+dodt_tpu/models/dt_avod.py: the monolithic pair forward ``__call__`` in
+val mode as ``forward``, and the streaming ``encode_frame`` and
+``pair_stage``).
 
 Module and parameter names follow the Flax tree, so ``convert.py`` maps a
 JAX checkpoint onto ``DtAvodNet.state_dict()`` one to one. Eval only:
@@ -37,6 +39,9 @@ OFFSETS_SIZE = {"box_3d": 6, "box_8c": 24, "box_8co": 24,
                 "box_4c": 10, "box_4ca": 10}
 ANGLE_SIZE = {"box_3d": 2, "box_8c": 0, "box_8co": 0,
               "box_4c": 0, "box_4ca": 2}
+# the decoded detections: what pair_stage returns and the evaluator reads
+FINAL_KEYS = ("final_boxes_3d", "final_orientations", "final_cls_softmax",
+              "final_scores", "final_valid", "final_corr_offsets")
 
 
 class Dense(nn.Module):
@@ -226,7 +231,8 @@ def _take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class DtAvodNet(nn.Module):
-    """Paired-frame AVOD with correlation head, streaming interface."""
+    """Paired-frame AVOD with correlation head: the monolithic pair
+    forward and the streaming interface."""
 
     def __init__(self, cfg: PipelineConfig,
                  cluster_sizes: Tuple[Tuple[float, float, float], ...]):
@@ -271,47 +277,57 @@ class DtAvodNet(nn.Module):
         return len(self.cfg.dataset.classes) + 1
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def encode_frame(self, batch: Dict[str, torch.Tensor]
-                     ) -> Dict[str, torch.Tensor]:
-        """Encode ONE frame per batch row: towers + RPN proposals.
+    # Shared stages. The streaming interface (encode_frame / pair_stage)
+    # and the monolithic forward run the same RPN and second-stage math;
+    # the JAX package keeps two copies, the port one.
 
-        batch: points (B, P, 3), points_valid (B, P), image (B, Hi, Wi, 3),
-        ground_plane (B, 4), p2 (B, 3, 4), orig_image_shape (B, 2).
-        Returns the frame state the pair stage consumes.
-        """
-        cfg = self.cfg
-        ku = cfg.dataset.kitti_utils
-        m = cfg.model
+    def _encode(self, points, points_valid, gps, images, p2, img_shapes
+                ) -> Dict[str, torch.Tensor]:
+        """Encode M frame rows: rasterisation, anchors and the lattice's
+        empty-anchor mask, both towers over all rows at once, then the
+        RPN (``_rpn``). Returns bev_input, anchors (M, N, 6),
+        anchor_valid (M, N), the f32 tower features and ``_rpn``'s
+        outputs."""
+        ku = self.cfg.dataset.kitti_utils
         bg = ku.bev_generator
-        lat = self.lattice
-        if lat is None:
+        if self.lattice is None:
             raise NotImplementedError(
                 "anchor geometry off the BEV pixel lattice: the per-anchor "
-                "crop path is not ported")
-        gps = batch["ground_plane"].to(torch.float32)
+                "crop path is not ported (ROADMAP A15)")
         maps = [bev_maps_from_points(p, v, gp, ku.area_extents,
                                      ku.voxel_size, bg.height_lo,
                                      bg.height_hi, bg.num_slices)
-                for p, v, gp in zip(batch["points"], batch["points_valid"],
-                                    gps)]
+                for p, v, gp in zip(points, points_valid, gps)]
         sizes = np.asarray(self.cluster_sizes, np.float32)
         anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
             ku.area_extents, sizes, ku.anchor_strides, gp)) for gp in gps])
         anchor_valid = torch.stack([dense_empty_anchor_mask(
-            integral_image_2d(mp.occupancy), lat, ku.density_threshold)
-            for mp in maps])
-
-        bev_feats = self.bev_vgg_pyr(
-            torch.stack([mp.features for mp in maps])).to(torch.float32)
+            integral_image_2d(mp.occupancy), self.lattice,
+            ku.density_threshold) for mp in maps])
+        bev_input = torch.stack([mp.features for mp in maps])
+        bev_feats = self.bev_vgg_pyr(bev_input).to(torch.float32)
         img_feats = self.img_vgg_pyr(
-            preprocess_image(batch["image"])).to(torch.float32)
+            preprocess_image(images)).to(torch.float32)
+        return {"bev_input": bev_input, "anchors": anchors,
+                "anchor_valid": anchor_valid, "bev_feats": bev_feats,
+                "img_feats": img_feats,
+                **self._rpn(bev_feats, img_feats, anchors, anchor_valid, p2,
+                            img_shapes)}
+
+    def _rpn(self, bev_feats, img_feats, anchors, anchor_valid, p2,
+             img_shapes) -> Dict[str, torch.Tensor]:
+        """Bottlenecks, dense-lattice RPN with (two-pass) image fusion and
+        exact NMS, per frame row: objectness (M, K, 2), rpn_offsets
+        (M, K, 6) over the K scored anchors (all of them, or the
+        fusion_top_k candidates), and the test_nms_size proposals."""
+        ku = self.cfg.dataset.kitti_utils
+        m = self.cfg.model
+        lat = self.lattice
         bev_bottle = _resize_to(self.bev_bottleneck(bev_feats),
                                 ku.bev_shape)
         img_bottle = self.img_bottleneck(img_feats)
 
         b, n_anchors = anchors.shape[0], anchors.shape[1]
-        img_shapes = batch["orig_image_shape"].to(torch.float32)
         crop_size = m.rpn.proposal_roi_crop_size
         bev_flat = torch.stack([dense_bev_rois(fm, lat)
                                 for fm in bev_bottle]).reshape(b, n_anchors,
@@ -336,9 +352,9 @@ class DtAvodNet(nn.Module):
 
         img_rois = torch.stack([
             crop_and_resize(fm, reorder_boxes_yx(project_to_image_space(
-                anc, p2, sh)[1]), crop_size)
-            for fm, anc, p2, sh in zip(img_bottle, cand_anchors,
-                                       batch["p2"], img_shapes)])
+                anc, p2_, sh)[1]), crop_size)
+            for fm, anc, p2_, sh in zip(img_bottle, cand_anchors, p2,
+                                        img_shapes)])
         fused = feature_fuse(bev_sel, img_rois.reshape(b, k_fuse, -1), 1.0,
                              1.0, m.rpn.fusion_method)
         flat = fused.reshape(b * k_fuse, -1)
@@ -357,51 +373,41 @@ class DtAvodNet(nn.Module):
             _take(prop_bev_norm, pre_idx, 1), _take(obj_scores, pre_idx, 1),
             pre_valid, k_rpn, m.rpn.nms_iou_thresh)
         top_idx = _take(pre_idx, keep, 1)
-        return {
-            "bev_feats": bev_feats, "img_feats": img_feats,
-            "top_anchors": _take(proposals, top_idx, 1),
-            "top_valid": top_valid,
-            "ground_plane": batch["ground_plane"], "p2": batch["p2"],
-            "orig_image_shape": batch["orig_image_shape"],
-        }
+        return {"objectness": objectness, "rpn_offsets": rpn_offsets,
+                "top_anchors": _take(proposals, top_idx, 1),
+                "top_scores": _take(obj_scores, top_idx, 1),
+                "top_valid": top_valid}
 
-    @torch.no_grad()
-    def pair_stage(self, state_a: Dict[str, torch.Tensor],
-                   state_b: Dict[str, torch.Tensor]
-                   ) -> Dict[str, torch.Tensor]:
-        """Second stage over a cached frame pair."""
-        cfg = self.cfg
-        ku = cfg.dataset.kitti_utils
-        m = cfg.model
-        corr_bottle = self.bev_corr_bottleneck(state_a["bev_feats"],
-                                               state_b["bev_feats"])
-        top_anchors = torch.stack([state_a["top_anchors"],
-                                   state_b["top_anchors"]], dim=1)
-        top_valid = torch.stack([state_a["top_valid"],
-                                 state_b["top_valid"]], dim=1)
+    def _second_stage(self, bev_bf, img_bf, top_anchors, top_valid, gp, p2,
+                      img_shapes, expand: float) -> Dict[str, torch.Tensor]:
+        """Correlation of frame 0 against frame 1, second-stage crops,
+        trunk, corr head, decode and final NMS over (B, F, ...) frame
+        pairs. ``expand`` widens the proposals' x/z extents for the crops
+        only (``expand_proposals_xz``)."""
+        ku = self.cfg.dataset.kitti_utils
+        m = self.cfg.model
+        corr_bottle = self.bev_corr_bottleneck(bev_bf[:, 0], bev_bf[:, 1])
         b, f, k = top_anchors.shape[0:3]
-        gp = state_a["ground_plane"].to(torch.float32)
-        img_shapes = state_a["orig_image_shape"].to(torch.float32)
-
-        _, ss_bev_norm = project_to_bev(top_anchors, ku.bev_extents)
+        proj_in = top_anchors
+        if expand > 0.0:
+            proj_in = top_anchors + top_anchors.new_tensor(
+                [0.0, 0.0, 0.0, expand, 0.0, expand])
+        _, ss_bev_norm = project_to_bev(proj_in, ku.bev_extents)
         ss_img_norm = torch.stack([
-            project_to_image_space(anc.reshape(-1, 6), p2, sh)[1]
-            for anc, p2, sh in zip(top_anchors, state_a["p2"], img_shapes)
+            project_to_image_space(anc.reshape(-1, 6), p2_, sh)[1]
+            for anc, p2_, sh in zip(proj_in, p2, img_shapes)
         ]).reshape(b, f, k, 4)
         ss_bev_yx = reorder_boxes_yx(ss_bev_norm)
         ss_img_yx = reorder_boxes_yx(ss_img_norm)
 
         s = m.avod.proposal_roi_crop_size
-        bev_maps = torch.stack([state_a["bev_feats"], state_b["bev_feats"]],
-                               dim=1).flatten(0, 1)           # (B*F, H, W, C)
-        img_maps = torch.stack([state_a["img_feats"], state_b["img_feats"]],
-                               dim=1).flatten(0, 1)
+        bev_maps = bev_bf.flatten(0, 1)                    # (B*F, H, W, C)
         bev_crop = bev_crop_fn(s, m.avod.bev_roi_window, bev_maps.shape[1:],
                                bev_maps.device)
         ss_bev_rois = bev_crop(bev_maps, ss_bev_yx.flatten(0, 1))
         ss_img_rois = torch.stack([
             crop_and_resize(fm, bx, s)
-            for fm, bx in zip(img_maps, ss_img_yx.flatten(0, 1))])
+            for fm, bx in zip(img_bf.flatten(0, 1), ss_img_yx.flatten(0, 1))])
 
         rep = m.avod.box_representation
         branch = self.avod_fc(ss_bev_rois.reshape(b * f * k, -1),
@@ -417,7 +423,7 @@ class DtAvodNet(nn.Module):
                                     ).reshape(b, k, 3)
 
         prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors, fix_lw=True)
-        gp4 = gp[:, None, None, :]
+        gp4 = gp.to(torch.float32)[:, None, None, :]
         prop_enc = encode_proposals(rep, prop_boxes_3d, gp4)
         pred_boxes_3d, pred_orient = decode_predictions(
             rep, prop_enc, box_offsets, angle_vecs, gp4)
@@ -431,13 +437,99 @@ class DtAvodNet(nn.Module):
                                        top_valid, m.avod.nms_size,
                                        m.avod.nms_iou_thresh)
         return {
+            "corr_pred": corr_offsets,
+            "proposal_boxes_3d": prop_boxes_3d, "proposal_enc": prop_enc,
+            "cls_logits": cls_logits, "box_offsets": box_offsets,
+            "angle_vectors": angle_vecs,
+            "pred_boxes_3d": pred_boxes_3d,
+            "pred_orientations": pred_orient,
+            "final_indices": f_idx,
+            "final_valid": f_valid & _take(top_valid, f_idx, 2),
             "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
             "final_orientations": _take(pred_orient, f_idx, 2),
             "final_cls_softmax": _take(cls_softmax, f_idx, 2),
             "final_scores": _take(final_scores_all, f_idx, 2),
-            "final_valid": f_valid & _take(top_valid, f_idx, 2),
             "final_corr_offsets": _take(corr_offsets, f_idx[:, 0], 1),
         }
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, torch.Tensor], mode: str = "val"
+                ) -> Dict[str, torch.Tensor]:
+        """The monolithic pair forward (the JAX ``__call__`` in eval).
+
+        batch (B couples, F = 2 frames): points (B, F, P, 3),
+        points_valid (B, F, P), image (B, F, Hi, Wi, 3), ground_plane
+        (B, 4), p2 (B, 3, 4), orig_image_shape (B, 2). Both towers run
+        over all B*F frames at once. Returns every output of the JAX
+        ``__call__`` in val mode; ``angle_vectors`` is None for box
+        representations without an angle branch.
+        """
+        if mode == "train":
+            raise NotImplementedError(
+                "mode='train': losses, sampling and the trainer are not "
+                "ported (ROADMAP A9-A11)")
+        points = batch["points"]
+        b, f = points.shape[0], points.shape[1]
+        if f != 2:
+            raise NotImplementedError(
+                f"{f} frames per sample: the port's forward is the paired "
+                "model; num_frames=1 is not ported (ROADMAP A15)")
+        gps = batch["ground_plane"].to(torch.float32)
+        p2 = batch["p2"]
+        img_shapes = batch["orig_image_shape"].to(torch.float32)
+
+        def per_frame(x):                         # (B, ...) -> (B*F, ...)
+            return x.repeat_interleave(f, dim=0)
+
+        enc = self._encode(points.flatten(0, 1),
+                           batch["points_valid"].flatten(0, 1),
+                           per_frame(gps), batch["image"].flatten(0, 1),
+                           per_frame(p2), per_frame(img_shapes))
+        out = {k: v.reshape((b, f) + v.shape[1:]) for k, v in enc.items()}
+        out["anchors"] = out["anchors"][:, 0]
+        out["img_mask"] = torch.ones(b, device=points.device)
+        out["bev_mask"] = torch.ones(b, device=points.device)
+        out.update(self._second_stage(
+            out.pop("bev_feats"), out.pop("img_feats"), out["top_anchors"],
+            out["top_valid"], gps, p2, img_shapes,
+            self.cfg.model.expand_proposals_xz))
+        return out
+
+    @torch.no_grad()
+    def encode_frame(self, batch: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Encode ONE frame per batch row: towers + RPN proposals.
+
+        batch: points (B, P, 3), points_valid (B, P), image (B, Hi, Wi, 3),
+        ground_plane (B, 4), p2 (B, 3, 4), orig_image_shape (B, 2).
+        Returns the frame state the pair stage consumes.
+        """
+        enc = self._encode(batch["points"], batch["points_valid"],
+                           batch["ground_plane"].to(torch.float32),
+                           batch["image"], batch["p2"],
+                           batch["orig_image_shape"].to(torch.float32))
+        return {
+            **{k: enc[k] for k in ("bev_feats", "img_feats", "top_anchors",
+                                   "top_valid")},
+            "ground_plane": batch["ground_plane"], "p2": batch["p2"],
+            "orig_image_shape": batch["orig_image_shape"],
+        }
+
+    @torch.no_grad()
+    def pair_stage(self, state_a: Dict[str, torch.Tensor],
+                   state_b: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Second stage over a cached frame pair. Like the JAX
+        ``pair_stage`` it does not apply ``expand_proposals_xz``."""
+        def pair(key):
+            return torch.stack([state_a[key], state_b[key]], dim=1)
+
+        out = self._second_stage(
+            pair("bev_feats"), pair("img_feats"), pair("top_anchors"),
+            pair("top_valid"), state_a["ground_plane"], state_a["p2"],
+            state_a["orig_image_shape"].to(torch.float32), 0.0)
+        return {k: out[k] for k in FINAL_KEYS}
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-The ``.cu`` sources have a plain C interface. At first use they are
-compiled together with ``nvcc`` for ``sm_90a`` into one shared library
-under ``build/kernels/`` at the repository root (listed in
-``.gitignore``) and loaded with ``ctypes``. The library's file name
+The ``.cu`` sources have a plain C interface. At first use each is
+compiled by its own ``nvcc`` for ``sm_90a``, all started together, and
+the objects are linked into one shared library under ``build/kernels/``
+at the repository root (listed in ``.gitignore``) and loaded with
+``ctypes``. The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt
 and a stale library is never loaded.
 
@@ -25,8 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -64,15 +66,30 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        objs.append(BUILD_DIR / f"{src.stem}.{tag}.o")
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[-1]), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"{o.name}: nvcc exit {p.returncode}\n{log}"
+              for o, p, log in zip(objs, procs, logs) if p.returncode]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode:
+            failed.append(f"link: nvcc exit {res.returncode}\n{logs[-1]}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     os.replace(tmp, out)          # atomic: a reader never sees half a file
-    return out, res.stdout + res.stderr
+    return out, "".join(logs)
 
 
 def load() -> ctypes.CDLL:

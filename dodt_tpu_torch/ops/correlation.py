@@ -1,18 +1,23 @@
-"""FlowNet correlation fused with its 1x1 bottleneck (kernel B3).
+"""FlowNet correlation: the raw volume (kernel B4) and the volume fused
+with its 1x1 bottleneck (kernel B3).
 
-  out[k, y, x] = sum_d w[d, k] * (1 / C) * sum_c A[y, x, c] *
-                 B_pad[y + pad + dy_d, x + pad + dx_d, c]
+  corr[d, y, x] = (1 / C) * sum_c A[y, x, c] *
+                  B_pad[y + pad + dy_d, x + pad + dx_d, c]
+  out[k, y, x] = sum_d w[d, k] * corr[d, y, x]
   over displacements d = ky * D + kx, dy = (ky - r) * stride_2,
   dx = (kx - r) * stride_2, r = max_displacement // stride_2, D = 2r + 1,
   pad = max_displacement, zero padding outside the map.
 
-Counterpart of dodt_tpu/ops/correlation.py's ``corr_bottleneck_pallas``
-(the JAX model computes the same function through the XLA
-``corr_bottleneck_blur`` form). The CUDA kernel (``csrc/correlation.cu``)
-contracts the correlation with the weights on chip, so the D^2-channel
-volume never reaches device memory; ``corr_bottleneck_plain`` is its
-PyTorch twin. CPU tensors take the twin, CUDA tensors the kernel,
-anything else raises.
+Counterpart of dodt_tpu/ops/correlation.py. ``correlation_cf`` /
+``correlation`` replace the ``correlation_pallas_cf`` route of the
+public ops (CUDA kernel ``csrc/correlation_cf.cu``; no model calls
+them). ``corr_bottleneck`` replaces ``corr_bottleneck_pallas`` (the JAX
+model computes the same function through the XLA ``corr_bottleneck_blur``
+form); its CUDA kernel (``csrc/correlation.cu``) contracts the
+correlation with the weights on chip, so the D^2-channel volume never
+reaches device memory. Each kernel has a PyTorch twin (``*_plain``).
+CPU tensors take the twin, CUDA tensors the kernel, anything else
+raises.
 """
 from __future__ import annotations
 
@@ -25,7 +30,10 @@ from dodt_tpu_torch.ops import _cuda
 
 _KERNEL = _cuda.CudaKernel("dodt_corr_bottleneck", [
     ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
+_CF_KERNEL = _cuda.CudaKernel("dodt_correlation_cf", [
+    ctypes.c_void_p] * 3 + [ctypes.c_int] * 6)
 MAX_CB = 4                   # csrc/correlation.cu
+MAX_D = 21                   # csrc/correlation_cf.cu
 SMEM_LIMIT = 48 * 1024       # static launch without the opt-in attribute
 
 
@@ -101,3 +109,101 @@ def corr_bottleneck(a: torch.Tensor, b: torch.Tensor, weights: torch.Tensor,
     return corr_bottleneck_cuda(
         a.to(torch.float32).contiguous(), b.to(torch.float32).contiguous(),
         weights.to(torch.float32).contiguous(), max_displacement, stride_2)
+
+
+# ---------------------------------------------------------------- B4
+
+def correlation_cf_plain(a: torch.Tensor, b: torch.Tensor,
+                         max_displacement: int, stride_2: int = 1
+                         ) -> torch.Tensor:
+    """Twin: a, b (N, H, W, C) -> (N, D^2, H, W) in the input dtype, one
+    displacement at a time; differentiable by autograd."""
+    _, h, w, c = a.shape
+    radius, d = disp_grid(max_displacement, stride_2)
+    pad = max_displacement
+    b_pad = F.pad(b, (0, 0, pad, pad, pad, pad))
+    maps = []
+    for k in range(d * d):
+        dy = (k // d - radius) * stride_2 + pad
+        dx = (k % d - radius) * stride_2 + pad
+        maps.append((a * b_pad[:, dy:dy + h, dx:dx + w]).sum(-1) / c)
+    return torch.stack(maps, dim=1)
+
+
+def correlation_cf_cuda(a: torch.Tensor, b: torch.Tensor,
+                        max_displacement: int, stride_2: int = 1
+                        ) -> torch.Tensor:
+    """The kernel: a, b (N, H, W, C) f32, C % 8 == 0 -> (N, D^2, H, W)
+    f32."""
+    _cuda.check_cuda_tensor("a", a, torch.float32, 4)
+    _cuda.check_cuda_tensor("b", b, torch.float32, 4)
+    nb, h, w, c = a.shape
+    _, d = disp_grid(max_displacement, stride_2)
+    if b.shape != a.shape:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
+    if a.device != b.device:
+        raise ValueError("a and b must be on one device")
+    if c % 8:
+        raise ValueError(f"correlation kernel needs C % 8 == 0, got {c}")
+    if d > MAX_D or nb * d > 65535:
+        raise ValueError(f"{nb} maps x {d} displacement rows: the kernel "
+                         f"takes D <= {MAX_D} and N * D <= 65535")
+    smem = _cuda.load().dodt_correlation_cf_smem_bytes(max_displacement)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"max_displacement {max_displacement} needs "
+                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
+    out = torch.empty((nb, d * d, h, w), dtype=torch.float32,
+                      device=a.device)
+    if out.numel():
+        _CF_KERNEL(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(out), nb,
+                   h, w, c, max_displacement, stride_2)
+    return out
+
+
+class _CorrelationCF(torch.autograd.Function):
+    """The kernel forward; the backward is the twin's autograd, recomputed
+    from the saved inputs (the JAX custom_vjp's XLA backward,
+    correlation.py:355-362; there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, a, b, max_displacement, stride_2):
+        ctx.save_for_backward(a, b)
+        ctx.args = (max_displacement, stride_2)
+        return correlation_cf_cuda(a, b, max_displacement, stride_2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        with torch.enable_grad():
+            a_, b_ = a.detach().requires_grad_(), b.detach().requires_grad_()
+            out = correlation_cf_plain(a_, b_, *ctx.args)
+            ga, gb = torch.autograd.grad(out, (a_, b_), grad)
+        return ga, gb, None, None
+
+
+def correlation_cf(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
+                   stride_2: int = 1) -> torch.Tensor:
+    """Channel-first correlation volume: (..., H, W, C) pairs ->
+    (..., D^2, H, W), in the input dtype on the CPU and f32 on the
+    card."""
+    if a.shape != b.shape or a.dim() < 3:
+        raise ValueError(f"correlation_cf: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} must be equal (..., H, W, C)")
+    lead = a.shape[:-3]
+    a4 = a.reshape((-1,) + a.shape[-3:])
+    b4 = b.reshape((-1,) + b.shape[-3:])
+    if a.device.type == "cpu":
+        out = correlation_cf_plain(a4, b4, max_displacement, stride_2)
+    elif a.device.type == "cuda":
+        out = _CorrelationCF.apply(a4.contiguous(), b4.contiguous(),
+                                   max_displacement, stride_2)
+    else:
+        raise ValueError(f"correlation_cf: no kernel for device {a.device}")
+    return out.reshape(lead + out.shape[1:])
+
+
+def correlation(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
+                stride_2: int = 1) -> torch.Tensor:
+    """Reference-layout correlation (..., H, W, D^2): the channel-first
+    volume with its displacement axis moved last (a view)."""
+    return correlation_cf(a, b, max_displacement, stride_2).movedim(-3, -1)

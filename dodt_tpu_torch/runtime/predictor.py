@@ -14,6 +14,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from dodt_tpu.utils.metrics import latency_stats
 from dodt_tpu_torch.ops.warp import transform_anchors_xz, warp_bev_features
 
 
@@ -85,3 +86,17 @@ class StreamingPredictor:
         host = {k: v.cpu().numpy() for k, v in out.items()}
         self.pair_times.append(time.perf_counter() - t0)
         return host
+
+    def latency_stats(self) -> Dict:
+        """``encode_cold``: the stream's first encode, which includes the
+        kernels' first-use build and load, so it is start-up cost;
+        ``pair``: the steady encode + pair step per keyframe, first
+        sample dropped; ``pair_cold`` when there is only one sample."""
+        out = {}
+        if self.encode_times:
+            out["encode_cold"] = latency_stats(self.encode_times)
+        if len(self.pair_times) > 1:
+            out["pair"] = latency_stats(self.pair_times[1:])
+        elif self.pair_times:
+            out["pair_cold"] = latency_stats(self.pair_times)
+        return out

@@ -84,16 +84,17 @@ def test_round_trip_is_exact():
     assert "bev_bottleneck.GroupNorm_0.weight" in sd         # flax "scale"
 
 
-@pytest.mark.parametrize("probe", ["jax", "flax"])
+@pytest.mark.parametrize("probe", ["jax", "flax", "orbax"])
 def test_port_imports_no_jax(probe):
-    """Importing every dodt_tpu_torch module, and what chip_smoke.py
-    imports besides (the shared JAX-free host modules and bench.py's
-    input maker), leaves JAX and Flax out of sys.modules (a fresh
-    interpreter, so this process's imports don't count)."""
+    """Importing every dodt_tpu_torch module, and what chip_smoke.py and
+    bench_torch.py import besides (the shared JAX-free host modules and
+    bench.py's input maker), leaves JAX, Flax and orbax out of
+    sys.modules (a fresh interpreter, so this process's imports don't
+    count)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import dodt_tpu_torch, chip_smoke, bench, dodt_tpu.config\n"
-        "import dodt_tpu.data.clusters\n"
+        "import dodt_tpu_torch, chip_smoke, bench, bench_torch\n"
+        "import dodt_tpu.config, dodt_tpu.data.clusters\n"
         "for m in pkgutil.walk_packages(dodt_tpu_torch.__path__,\n"
         "                               'dodt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -70,3 +70,29 @@ def test_corr_bottleneck_kernel_matches_twin(dev):
     got = tcorr.corr_bottleneck(a, b, w, 5)
     want = tcorr.corr_bottleneck_plain(a, b, w, 5)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,md,s2", [((2, 30, 41, 16), 5, 1),
+                                         ((1, 17, 70, 8), 4, 2)])
+def test_correlation_kernel_matches_twin(dev, shape, md, s2):
+    """f32 sums of C products in another order: 1e-5. The (H, W, D^2)
+    op is the same volume with its axis moved; the CUDA route's
+    gradients are the twin's."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(shape, generator=g).to(dev)
+    b = torch.randn(shape, generator=g).to(dev)
+    before = tcorr._CF_KERNEL.launches
+    got = tcorr.correlation_cf(a, b, md, s2)
+    assert tcorr._CF_KERNEL.launches == before + 1
+    want = tcorr.correlation_cf_plain(a, b, md, s2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tcorr.correlation(a, b, md, s2),
+                               want.movedim(1, -1), rtol=1e-5, atol=1e-5)
+    w = torch.randn(got.shape, generator=g).to(dev)
+    ga, gb = (x.clone().requires_grad_() for x in (a, b))
+    pa, pb = (x.clone().requires_grad_() for x in (a, b))
+    (tcorr.correlation_cf(ga, gb, md, s2) * w).sum().backward()
+    (tcorr.correlation_cf_plain(pa, pb, md, s2) * w).sum().backward()
+    torch.testing.assert_close(ga.grad, pa.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gb.grad, pb.grad, rtol=1e-5, atol=1e-5)

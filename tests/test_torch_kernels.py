@@ -1,4 +1,4 @@
-"""The port's kernels (dodt_tpu_torch B1-B3) against the JAX package.
+"""The port's kernels (dodt_tpu_torch B1-B4) against the JAX package.
 
 On the CPU each kernel module runs its plain PyTorch twin; these tests
 hold every twin against the Pallas kernel it replaces, run the way the
@@ -20,6 +20,7 @@ from dodt_tpu.ops import roi_pallas
 from dodt_tpu_torch.ops import conv_chain as tcc
 from dodt_tpu_torch.ops import correlation as tcorr
 from dodt_tpu_torch.ops import roi_window as twin
+from test_ops import np_correlation
 
 
 def _chain(rng, ci, chain_out):
@@ -167,6 +168,69 @@ def test_corr_bottleneck_twin_matches_pallas_interpret(h, w, c, cb, md, s2):
     np.testing.assert_allclose(got, blur, rtol=1e-5, atol=1e-5)
 
 
+# ---------------------------------------------------------------- B4
+
+@pytest.mark.parametrize("shape,md,s2", [
+    ((20, 24, 8), 5, 1),       # the model's displacement range
+    ((12, 12, 4), 4, 2),       # stride_2 = 2
+    ((2, 10, 13, 8), 5, 1),    # batched
+    ((2, 9, 7, 3), 4, 2),      # batched, stride_2 = 2, odd channels
+])
+def test_correlation_twin_matches_jax(shape, md, s2):
+    """The twin against the interpret-mode Pallas kernel (one call per
+    map: vmap of the pallas_call does not run in interpret mode),
+    correlation_xla_cf, the JAX reference-layout op and the numpy oracle:
+    f32 sums of C products in another order, 1e-6 (the values are
+    O(1))."""
+    rng = np.random.RandomState(6)
+    a = rng.randn(*shape).astype(np.float32)
+    b = rng.randn(*shape).astype(np.float32)
+    got_cf = tcorr.correlation_cf(torch.from_numpy(a), torch.from_numpy(b),
+                                  md, s2).numpy()
+    got = tcorr.correlation(torch.from_numpy(a), torch.from_numpy(b), md,
+                            s2).numpy()
+    _, d = jcorr._disp_grid(md, s2)
+    assert got_cf.shape == shape[:-3] + (d * d,) + shape[-3:-1]
+    assert got.shape == shape[:-1] + (d * d,)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.stack([np.asarray(jcorr.correlation_pallas_cf(
+            x, y, md, s2)) for x, y in zip(ja.reshape((-1,) + shape[-3:]),
+                                           jb.reshape((-1,) + shape[-3:]))])
+    pallas = pallas.reshape(got_cf.shape)
+    xla_cf = np.asarray(jcorr.correlation_cf(ja, jb, md, s2,
+                                             use_pallas=False))
+    ref = np.asarray(jcorr.correlation(ja, jb, md, s2, use_pallas=False))
+    oracle = (np_correlation(a, b, md, s2) if a.ndim == 3 else
+              np.stack([np_correlation(x, y, md, s2) for x, y in zip(a, b)]))
+    np.testing.assert_allclose(got_cf, pallas, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_cf, xla_cf, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, oracle, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("md,s2", [(2, 1), (4, 2)])
+def test_correlation_twin_grads_match_jax(md, s2):
+    """Gradients of sum(corr * G) w.r.t. both maps: the twin's autograd
+    against jax.grad of correlation_xla, f32 sums in another order,
+    1e-5."""
+    rng = np.random.RandomState(10)
+    a = rng.randn(6, 7, 3).astype(np.float32)
+    b = rng.randn(6, 7, 3).astype(np.float32)
+    _, d = jcorr._disp_grid(md, s2)
+    g = rng.randn(6, 7, d * d).astype(np.float32)
+    want = jax.grad(lambda x, y: jnp.sum(
+        jcorr.correlation_xla(x, y, md, s2) * g), argnums=(0, 1))(
+            jnp.asarray(a), jnp.asarray(b))
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    (tcorr.correlation(ta, tb, md, s2) * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(want[1]),
+                               rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------- dispatch
 
 def _run_all_cpu():
@@ -176,13 +240,14 @@ def _run_all_cpu():
                                 torch.zeros(3, 4), 7)
     tcorr.corr_bottleneck(torch.zeros(1, 8, 8, 8), torch.zeros(1, 8, 8, 8),
                           torch.zeros(121, 1), 5)
+    tcorr.correlation(torch.zeros(2, 8, 8, 8), torch.zeros(2, 8, 8, 8), 5)
 
 
 def test_cpu_tensors_take_the_twins_and_launch_nothing():
-    kernels = (tcc._KERNEL, twin._KERNEL, tcorr._KERNEL)
+    kernels = (tcc._KERNEL, twin._KERNEL, tcorr._KERNEL, tcorr._CF_KERNEL)
     before = [k.launches for k in kernels]
     _run_all_cpu()
-    assert [k.launches for k in kernels] == before == [0, 0, 0]
+    assert [k.launches for k in kernels] == before == [0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("fn", [
@@ -193,6 +258,8 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
     lambda: tcorr.corr_bottleneck(
         torch.zeros(8, 8, 8, device="meta"),
         torch.zeros(8, 8, 8, device="meta"), torch.zeros(121, 1), 5),
+    lambda: tcorr.correlation_cf(torch.zeros(8, 8, 8, device="meta"),
+                                 torch.zeros(8, 8, 8, device="meta"), 5),
 ])
 def test_other_devices_raise(fn):
     with pytest.raises(ValueError):

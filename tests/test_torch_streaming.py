@@ -128,3 +128,33 @@ def test_frame_state_matches_jax(runs):
                                np.asarray(want["top_anchors"]), atol=1e-4)
     # the predictor timed its two pair steps and its cold encode
     assert len(tp.pair_times) == 2 and len(tp.encode_times) == 1
+
+
+@pytest.fixture(scope="module")
+def latency(fixture):
+    """Both predictors' latency_stats() after each of three
+    push_keyframe(fetch=True) calls (single-pass config)."""
+    cfg, params, frames = fixture
+    jp = JaxPredictor(jdt.DtAvodNet(cfg=cfg, cluster_sizes=CLUSTERS), params)
+    tmodel = tdt.DtAvodNet(cfg, CLUSTERS)
+    tmodel.load_state_dict(flax_to_state_dict(params), strict=True)
+    tp = StreamingPredictor(tmodel.eval())
+    stats = []
+    for frame in (frames[0], frames[1], frames[0]):
+        jp.push_keyframe(frame, fetch=True)
+        tp.push_keyframe(frame, fetch=True)
+        stats.append((jp.latency_stats(), tp.latency_stats()))
+    return stats
+
+
+@pytest.mark.parametrize("pushes,keys", [
+    (1, {"encode_cold"}), (2, {"encode_cold", "pair_cold"}),
+    (3, {"encode_cold", "pair"})])
+def test_latency_stats_match_jax(latency, pushes, keys):
+    """Same keys as the JAX predictor's, the same sample count under
+    each, and the same statistics in each."""
+    want, got = latency[pushes - 1]
+    assert set(got) == set(want) == keys
+    for k in keys:
+        assert set(got[k]) == set(want[k])
+        assert got[k]["n"] == want[k]["n"]
