@@ -23,7 +23,22 @@ Phases, in order; any failure exits non-zero and prints no result:
      then drive B4's public op (correlation, through correlation_cf) on the
      full-width BEV feature shape with the counters zeroed again;
   6. run the monolithic forward of the small config at B = 2 on the card
-     and on the CPU with the same weights and compare them.
+     and on the CPU with the same weights and compare them;
+  7. train the full-width cars_dt_tracking model (B = 1 couple, train=True:
+     dropout, path drop, sampling) for a few steps through Trainer.train on
+     an in-memory stream (bench.make_batch's couple with seeded GT cars);
+     one step's gradients must be finite for every parameter and non-zero
+     for B3's weights, every loss term finite and non-zero, B3's counter
+     must grow and B1's and B2's (eval-only) stay 0; prints the median
+     step time, B3's backward time against its forward and the peak
+     memory;
+  8. one train step of the small config on the card and on the CPU with
+     the same weights and draws (dropout off): losses and every gradient
+     compared.
+
+Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
+twin's autograd backward) against the twins' autograd, and times B3's
+backward.
 
 TF32 is off for the whole run (cuDNN and cuBLAS), so every f32 op on the
 card is a full f32 op and the comparisons measure the kernels alone.
@@ -31,8 +46,8 @@ card is a full f32 op and the comparisons measure the kernels alone.
 The second-to-last line of stdout holds the card's name and power limit,
 the line before it one JSON object with each kernel's launches (on the
 path that runs it: B1-B3 the streaming slice, with the monolithic
-forward's count beside it; B4 its public ops), error and times; the last
-line is {"ok": true, "device": {...}}.
+forward's and the train step's counts beside it; B4 its public ops),
+error and times; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -226,9 +241,64 @@ def kernel_checks(dev):
         "max_abs_err": err,
         "ms": cuda_time_ms(lambda: corr.correlation_cf(a, b, 5)),
         "plain_ms": cuda_time_ms(lambda: corr.correlation_cf_plain(a, b, 5))}
+    autograd_checks(dev, res, a, b, w, ws, bs, xs)
     for name, r in res.items():
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     return res
+
+
+def autograd_checks(dev, res, a, b, w, ws, bs, xs):
+    """B3's and B1's autograd routes (the kernel forward, the twin's
+    autograd backward) against the twins' autograd at the main-path
+    shapes, to the forward tolerances; B3's backward timed against its
+    forward (CUDA events)."""
+    import torch
+    from dodt_tpu_torch.ops import conv_chain as cc
+    from dodt_tpu_torch.ops import correlation as corr
+    g = torch.Generator().manual_seed(4)
+    cot = torch.randn((1, 1, 350, 400), generator=g).to(dev)
+    kern = [t.detach().clone().requires_grad_() for t in (a, b, w)]
+    out = corr.corr_bottleneck(*kern, 5)
+    check(out.grad_fn is not None, "corr_bottleneck output has no grad_fn")
+    (out * cot).sum().backward()
+    twin = [t.detach().clone().requires_grad_() for t in (a, b, w)]
+    (corr.corr_bottleneck_plain(*twin, 5) * cot).sum().backward()
+    for name, k, p in zip(("a", "b", "weights"), kern, twin):
+        e, scale = rel_err(k.grad, p.grad)
+        log(f"B3 gradient w.r.t. {name} vs the twin's: max_abs_err {e:.4g} "
+            f"(max |ref| {scale:.4g})")
+        check(e <= 1e-4 * scale, f"corr_bottleneck grad {name}: {e}")
+
+    def fwd():
+        return corr.corr_bottleneck(*kern, 5)
+
+    def fwd_bwd():
+        torch.autograd.grad(corr.corr_bottleneck(*kern, 5), kern, cot)
+    f_ms = cuda_time_ms(fwd, n_timed=5)
+    fb_ms = cuda_time_ms(fwd_bwd, n_timed=5)
+    res["corr_bottleneck"]["bwd_ms"] = fb_ms - f_ms
+    log(f"B3 at (1, 350, 400, 32): forward {f_ms:.4f} ms, backward (the "
+        f"twin's autograd) {fb_ms - f_ms:.4f} ms")
+
+    # B1: the conv4 chain's gradients w.r.t. the input and every weight
+    x = xs[0].detach().clone().requires_grad_()
+    kw = [t.detach().clone().requires_grad_() for t in (*ws, *bs)]
+    out = cc.conv_chain(x, kw[:3], kw[3:])
+    check(out.grad_fn is not None, "conv_chain output has no grad_fn")
+    cot = torch.randn(out.shape, generator=g).to(dev)
+    (out.float() * cot).sum().backward()
+    px = xs[0].detach().clone().requires_grad_()
+    pw = [t.detach().clone().requires_grad_() for t in (*ws, *bs)]
+    (cc.conv_chain_plain(px, pw[:3], pw[3:]).float() * cot).sum().backward()
+    worst = 0.0
+    for k, p in zip([x, *kw], [px, *pw]):
+        e, scale = rel_err(k.grad, p.grad)
+        worst = max(worst, e / max(scale, 1e-30))
+        # the backward recomputes the twin from the same inputs: only
+        # the f32 sum order of cuDNN's algorithms may differ
+        check(e <= 2e-2 * scale, f"conv_chain grad disagrees: {e} vs {scale}")
+    log(f"B1 gradients w.r.t. x and 6 parameters vs the twin's: worst "
+        f"max_abs_err / max |ref| {worst:.4g}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -394,7 +464,7 @@ def cuda_vs_cpu(dev):
     _, norm = project_to_bev(st_g["top_anchors"], ku.bev_extents)
     yx = reorder_boxes_yx(norm)
     crop = bev_crop_fn(m.avod.proposal_roi_crop_size, m.avod.bev_roi_window,
-                       feats.shape[1:], feats.device)
+                       False, feats.shape[1:], feats.device)
     win = crop(feats, yx)[0]
     gat = crop_and_resize_gather(feats[0], yx[0], m.avod.proposal_roi_crop_size)
     fits = window_fits(feats.shape, yx, m.avod.proposal_roi_crop_size,
@@ -562,6 +632,260 @@ def forward_cuda_vs_cpu(dev):
             check(fin >= 0.8, f"couple {b} frame {f}: final boxes {fin}")
 
 
+# ---------------------------------------------------------------- phase 7
+
+def car_boxes(rng, n, ground_y):
+    """n non-overlapping car boxes (box_3d, camera frame) on a 4-column
+    grid in front of the sensor, sizes near the car clusters."""
+    cols = 4
+    rows = (n + cols - 1) // cols
+    gx = np.linspace(-15.0, 15.0, cols)
+    gz = np.linspace(12.0, 12.0 + 6.0 * (rows - 1), rows)
+    xs, zs = np.meshgrid(gx, gz)
+    xs, zs = xs.ravel()[:n], zs.ravel()[:n]
+    l = rng.uniform(3.6, 4.2, n)
+    w = rng.uniform(1.55, 1.7, n)
+    h = rng.uniform(1.45, 1.6, n)
+    ry = rng.choice([0.0, -np.pi / 2], n) + rng.uniform(-0.1, 0.1, n)
+    return np.stack([xs + rng.uniform(-0.5, 0.5, n), np.full(n, ground_y),
+                     zs + rng.uniform(-0.5, 0.5, n), l, w, h, ry],
+                    -1).astype(np.float32)
+
+
+def car_surface_points(rng, box, k):
+    """k points on the four sides and the roof of one box_3d."""
+    x, y, z, l, w, h, ry = box
+    face = rng.randint(0, 5, k)
+    u = rng.uniform(-0.5, 0.5, k) * l
+    v = rng.uniform(-0.5, 0.5, k) * w
+    u = np.where(face == 0, l / 2, np.where(face == 1, -l / 2, u))
+    v = np.where(face == 2, w / 2, np.where(face == 3, -w / 2, v))
+    up = np.where(face == 4, h, rng.uniform(0.2, 1.0, k) * h)
+    c, s = np.cos(ry), np.sin(ry)
+    return np.stack([x + u * c + v * s, y - up, z - u * s + v * c],
+                    -1).astype(np.float32)
+
+
+def train_batch(cfg, rng):
+    """bench.make_batch's couple with seeded GT in the dataset's keys
+    (dodt_tpu/data/tracking.py): two cars per frame, whose surface
+    points overwrite both frames' scans. Random RPN weights score
+    anchors arbitrarily, so the second stage holds a positive only if
+    every non-empty anchor fits the 1024 proposals: two cars leave about
+    960 non-empty anchors (one stray scan point validates every anchor
+    around it: with the scan kept, 52k), of which about 6 per frame
+    pass the second stage's 0.65 IoU and 27 the RPN's 0.5."""
+    from bench import make_batch
+    batch = make_batch(cfg, rng)
+    g, n_gt = cfg.dataset.max_gt_boxes, 2
+    boxes = car_boxes(rng, n_gt, float(batch["ground_plane"][0, 3]))
+    p = batch["points"].shape[2]
+    pts_per_car = p // n_gt
+    idx = rng.permutation(p)[:n_gt * pts_per_car]
+    for f in range(2):
+        car = np.concatenate([car_surface_points(rng, bx, pts_per_car)
+                              for bx in boxes])
+        batch["points"][0, f, idx] = car
+    gt = np.zeros((1, 2, g, 7), np.float32)
+    gt[0, :, :n_gt] = boxes
+    valid = np.zeros((1, 2, g), bool)
+    valid[0, :, :n_gt] = True
+    batch.update({
+        "gt_boxes": gt, "gt_classes": valid.astype(np.int32),
+        "gt_valid": valid,
+        "gt_track_ids": np.where(valid, np.arange(g), -1).astype(np.int32),
+        "corr_offsets": np.where(valid[0, :1, :, None], rng.uniform(
+            -0.5, 0.5, (1, g, 3)), 0.0).astype(np.float32),
+        "corr_coexist": valid[:, 0].copy()})
+    return batch
+
+
+class SmokeStream:
+    """An in-memory dataset for the Trainer: next_batch gives
+    train_batch's couple from a seeded generator, a new one each call."""
+
+    def __init__(self, cfg, seed):
+        self.cfg = cfg
+        self.rng = np.random.RandomState(seed)
+
+    def next_batch(self, batch_size, augment=True):
+        parts = [train_batch(self.cfg, self.rng) for _ in range(batch_size)]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+TRAIN_STEPS = 6
+LOSS_KEYS = ("rpn_cls", "rpn_reg", "avod_cls", "avod_reg", "avod_ang",
+             "corr", "total")
+
+
+def full_width_training(dev, counters):
+    """cars_dt_tracking at full width, B = 1 couple, train=True (dropout,
+    path drop, sampling), through Trainer.train. The random weights are
+    init_params' with rpn_reg's output layer scaled by 1e-2: a trained
+    RPN regresses small offsets, and random ones would move every
+    proposal off its anchor, so the second stage would see no positive.
+    One step's gradients are checked first (finite everywhere, non-zero
+    for B3's weights); then the counters are zeroed and the Trainer runs
+    TRAIN_STEPS steps. Returns (median step ms, peak MiB, launches)."""
+    import shutil
+    import torch
+    from dodt_tpu.config import cars_dt_tracking
+    from dodt_tpu.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.models.dt_avod import (DtAvodNet, compute_losses,
+                                               generator_draws, init_params)
+    from dodt_tpu_torch.runtime.trainer import Trainer
+
+    cfg = cars_dt_tracking()
+    cfg.dataset.max_points = 65536
+    n_steps = TRAIN_STEPS
+    cfg.train.checkpoint_interval = n_steps
+    model = DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS)
+    init_params(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.rpn_reg.out.weight.mul_(1e-2)
+    model.to(dev).train()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    stream = SmokeStream(cfg, 7)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in stream.next_batch(1).items()}
+    rand = generator_draws(torch.Generator(dev).manual_seed(1))
+    out = model(batch, mode="train", train=True, rand=rand)
+    _, losses = compute_losses(cfg, out, batch, rand)
+    losses["total"].backward()
+    log("first train step losses: " + ", ".join(
+        f"{k} {losses[k].item():.4g}" for k in LOSS_KEYS) + ", valid "
+        f"proposals per frame {out['top_valid'].sum(-1).tolist()}")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not bad, f"parameters without a finite gradient: {bad}")
+    gw = float(model.bev_corr_bottleneck.weight.grad.abs().max())
+    log(f"train step gradients: all {len(list(model.parameters()))} finite, "
+        f"max |d/d bev_corr_bottleneck.weight| {gw:.4g}")
+    check(gw > 0, "bev_corr_bottleneck.weight got no gradient")
+    model.zero_grad(set_to_none=True)
+    del out, losses
+
+    ckpt = os.path.join(ROOT, "build", "smoke_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    trainer = Trainer(cfg, model, stream, ckpt, metrics_path=None)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, history = trainer.train(max_steps=n_steps, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.symbol: c.launches for c in counters}
+    steps_ms = np.diff([0.0] + [h["wall_s"] for h in history]) * 1e3
+    for h in history:
+        log("train step {}: ".format(h["step"]) + ", ".join(
+            f"{k} {h[k]:.4g}" for k in LOSS_KEYS))
+    check(state.step == n_steps and trainer.ckpt.all_steps() == [n_steps],
+          f"trainer ended at step {state.step}")
+    for k in LOSS_KEYS:
+        vals = [h[k] for h in history]
+        check(all(np.isfinite(vals)), f"loss {k} not finite: {vals}")
+        check(np.mean(vals) > 0, f"loss {k} is zero in every step")
+    check(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
+          "parameters not finite after training")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    med = float(np.median(steps_ms[1:]))
+    log(f"full-width training: {n_steps} steps in {wall:.2f} s, step ms "
+        f"{[round(float(t), 2) for t in steps_ms]}, median after the first "
+        f"{med:.2f} ms, peak device memory {peak:.0f} MiB, launches "
+        f"{launches}")
+    b1, b2, b3 = (launches[c.symbol] for c in counters)
+    check(b3 > 0, "corr_bottleneck (B3) was not launched by training")
+    check(b1 == 0 and b2 == 0, "an eval-only kernel (B1/B2) ran in training")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return med, peak, launches
+
+
+# ---------------------------------------------------------------- phase 8
+
+def train_step_cuda_vs_cpu(dev):
+    """One train step of the small config (f32 towers, two-pass RPN,
+    dropout and path drop off) on the card and on the CPU, with the same
+    weights, batch and sampling draws. SGD at lr 1 with no clipping, so
+    each parameter's update is minus its gradient: the losses and every
+    gradient are compared."""
+    import copy
+    import torch
+    from bench import make_batch
+    from dodt_tpu_torch.models import dt_avod
+    from dodt_tpu_torch.runtime.trainer import (create_train_state,
+                                                make_train_step)
+
+    cfg = small_cfg()
+    cfg.model.tower_dtype = "float32"
+    cfg.model.rpn.keep_prob = cfg.model.avod.keep_prob = 1.0
+    cfg.model.path_drop_probabilities = (1.0, 1.0)
+    opt = cfg.train.optimizer
+    opt.name, opt.initial_lr, opt.grad_clip_norm = "sgd", 1.0, 1e30
+    clusters = ((3.9, 1.6, 1.52),)
+    cpu_model = dt_avod.DtAvodNet(cfg, clusters)
+    dt_avod.init_params(cpu_model, torch.Generator().manual_seed(2))
+    with torch.no_grad():              # proposals near anchors (phase 7)
+        cpu_model.rpn_reg.out.weight.mul_(1e-2)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    host = make_batch(cfg, np.random.RandomState(3))
+    cache = {}
+    g = torch.Generator().manual_seed(4)
+
+    def rand(name, shape):                       # the same draws for both
+        if (name, shape) not in cache:
+            cache[name, shape] = torch.rand(shape, generator=g)
+        return cache[name, shape]
+
+    # GT on the CPU forward's first proposals: every loss term non-zero
+    cpu_batch = {k: torch.as_tensor(v) for k, v in host.items()}
+    with torch.no_grad():
+        out = cpu_model(cpu_batch, mode="train", rand=rand)
+    top, top_valid = out["top_anchors"], out["top_valid"]
+    gmax = cfg.dataset.max_gt_boxes
+    boxes = dt_avod.box_ops.anchors_to_box_3d(top[:, :, :gmax], fix_lw=True)
+    host["gt_boxes"] = boxes.numpy() + np.float32([0.05, 0, 0, 0, 0, 0, 0])
+    host["gt_valid"] = out_valid = top_valid[:, :, :gmax].numpy()
+    host["gt_classes"] = out_valid.astype(np.int32)
+    host["corr_offsets"] = np.random.RandomState(5).uniform(
+        -0.5, 0.5, (1, gmax, 3)).astype(np.float32)
+    host["corr_coexist"] = np.ones((1, gmax), bool)
+    results = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"),
+                           ("cuda", gpu_model, dev)):
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg, model)
+        batch = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
+        new, losses = step(state, batch, lambda n, s, d=d: rand(n, s).to(d))
+        grads = {k: (state.params[k] - new.params[k]).cpu()
+                 for k in state.params}
+        results[name] = ({k: float(v) for k, v in losses.items()}, grads)
+    (lc, gc), (lg, gg) = results["cpu"], results["cuda"]
+    log("small train step losses cuda " + ", ".join(
+        f"{k} {lg[k]:.6g}" for k in LOSS_KEYS) + " | cpu " + ", ".join(
+        f"{k} {lc[k]:.6g}" for k in LOSS_KEYS))
+    for k in LOSS_KEYS:
+        check(lc[k] > 0, f"small step: loss {k} is zero")
+        # f32 with TF32 off: cuDNN/cuBLAS and index-add atomics sum in
+        # other orders than the CPU: 1e-4 relative
+        check(abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]),
+              f"small step loss {k}: cuda {lg[k]} cpu {lc[k]}")
+    top_grad = max(float(v.abs().max()) for v in gc.values())
+    worst, worst_key = 0.0, None
+    for k, want in gc.items():
+        e, scale = rel_err(gg[k], want)
+        # a bias ahead of a one-channel GroupNorm has an exact gradient
+        # of 0: rounding noise on both sides, held to 1e-4 of the model's
+        # largest gradient; every other leaf to 1e-3 of its own range
+        tol = max(1e-3 * scale, 1e-4 * top_grad) if scale < 1e-4 * \
+            top_grad else 1e-3 * scale
+        check(e <= tol, f"small step gradient {k}: {e} vs {scale}")
+        if scale >= 1e-4 * top_grad and e / scale > worst:
+            worst, worst_key = e / scale, k
+    log(f"small train step: {len(gc)} gradients, worst max_abs_err / "
+        f"max |ref| {worst:.4g} ({worst_key})")
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -613,6 +937,11 @@ def main():
         log("phase 5: full-width pair forward and B4's public op ran")
         forward_cuda_vs_cpu(dev)
         log("phase 6: CUDA pair forward agrees with the CPU forward")
+        step_ms, peak_mib, train_launches = full_width_training(dev,
+                                                               counters)
+        log("phase 7: full-width training ran through the Trainer")
+        train_step_cuda_vs_cpu(dev)
+        log("phase 8: CUDA train step agrees with the CPU train step")
     except PhaseError as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1
@@ -627,8 +956,13 @@ def main():
     for arm in ("static", "ego"):
         print(f"steady keyframe ms ({arm} arm): {times[arm]:.4f} on {card}")
     print(f"pair_latency_ms: {pair_ms:.4f} on {card}")
+    print(f"train_step_ms (median, full width, B = 1): {step_ms:.4f}, peak "
+          f"device memory {peak_mib:.0f} MiB on {card}")
+    print(f"B3 backward ms: {kern['corr_bottleneck']['bwd_ms']:.4f}, forward "
+          f"{kern['corr_bottleneck']['ms']:.4f} on {card}")
     launches_by_path = {k.symbol: {"stream": launches[k.symbol],
-                                   "pair_forward": fwd_launches[k.symbol]}
+                                   "pair_forward": fwd_launches[k.symbol],
+                                   "train_step": train_launches[k.symbol]}
                         for k in counters}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
         "correlation_op": op_launches}

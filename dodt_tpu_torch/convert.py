@@ -72,3 +72,69 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(_to_flax_layout(a))
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Train state: a JAX TrainState (params, optax state, EMA) <-> the port's
+# runtime.trainer.TrainState. optax's states are NamedTuples; they are read
+# and rebuilt by their type names and fields, so optax is not imported.
+
+_OPT_FIELDS = {"ScaleByAdamState": {"count": "count", "mu": "mu",
+                                    "nu": "nu"},
+               "TraceState": {"trace": "trace"},
+               "ScaleByRmsState": {"nu": "nu"},
+               "ScaleByScheduleState": {"count": "schedule_count"}}
+
+
+def _walk_optax(node, out: Dict[str, Any]) -> None:
+    fields = _OPT_FIELDS.get(type(node).__name__)
+    if fields is not None:
+        for f, key in fields.items():
+            v = getattr(node, f)
+            out[key] = (int(np.asarray(v)) if f == "count"
+                        else flax_to_state_dict(v))
+    elif isinstance(node, tuple):        # chains, MaskedState, EmptyState
+        for child in node:
+            _walk_optax(child, out)
+
+
+def train_state_from_flax(state):
+    """A JAX ``TrainState`` (leaves as numpy or JAX arrays) -> the port's
+    ``TrainState`` on the CPU: params, optimiser moments and counts, EMA
+    params and step, so a JAX run resumes in the port."""
+    from dodt_tpu_torch.runtime.trainer import TrainState
+    opt: Dict[str, Any] = {}
+    _walk_optax(state.opt_state, opt)
+    ema = state.ema_params
+    return TrainState(step=int(np.asarray(state.step)),
+                      params=flax_to_state_dict(state.params),
+                      opt_state=opt,
+                      ema_params=None if ema is None
+                      else flax_to_state_dict(ema))
+
+
+def _fill_optax(node, opt: Mapping[str, Any]):
+    fields = _OPT_FIELDS.get(type(node).__name__)
+    if fields is not None:
+        return node._replace(**{
+            f: (np.asarray(opt[key], np.int32) if f == "count"
+                else state_dict_to_flax(opt[key]))
+            for f, key in fields.items()})
+    if hasattr(node, "_fields"):
+        return node._replace(**{f: _fill_optax(getattr(node, f), opt)
+                                for f in node._fields})
+    if isinstance(node, tuple):
+        return tuple(_fill_optax(child, opt) for child in node)
+    return node
+
+
+def train_state_to_flax(state, opt_template) -> Dict[str, Any]:
+    """The port's ``TrainState`` -> {"step", "params", "opt_state",
+    "ema_params"} in Flax layout as numpy arrays; ``opt_state`` is
+    ``opt_template`` (the JAX optimiser's state for the same config)
+    with every moment and count replaced."""
+    return {"step": np.asarray(state.step, np.int32),
+            "params": state_dict_to_flax(state.params),
+            "opt_state": _fill_optax(opt_template, state.opt_state),
+            "ema_params": None if state.ema_params is None
+            else state_dict_to_flax(state.ema_params)}

@@ -12,8 +12,11 @@ max-pool function, so the port computes them as plain convolutions
 holds flat ``conv1_{i}_kernel`` / ``conv1_{i}_bias`` parameters, every
 other conv a ``{name}_{i}`` module with ``weight``/``bias``. Blocks named
 in ``fused_interior`` (conv4 in the flagship) run through the conv-chain
-kernel (ops/conv_chain.py). Public layout is NHWC; inside, NCHW
-(channels-last memory on the card, so the conv-chain hand-off is a view).
+kernel (ops/conv_chain.py) unless ``forward`` is called with
+``fused=False``: training runs plain convolutions there, as the JAX model
+does (``fused = ()`` in train mode, dt_avod.py:389-394). Public layout
+is NHWC; inside, NCHW (channels-last memory on the card, so the
+conv-chain hand-off is a view).
 """
 from __future__ import annotations
 
@@ -107,9 +110,10 @@ class VggPyramid(nn.Module):
         return [(getattr(self, f"{name}_{i}").weight,
                  getattr(self, f"{name}_{i}").bias) for i in range(num)]
 
-    def _block(self, h: torch.Tensor, name: str, num: int) -> torch.Tensor:
+    def _block(self, h: torch.Tensor, name: str, num: int,
+               fused: bool) -> torch.Tensor:
         params = self._params(name, num)
-        if name in self.cfg.fused_interior:
+        if fused and name in self.cfg.fused_interior:
             out = conv_chain(h.permute(0, 2, 3, 1), [w for w, _ in params],
                              [b for _, b in params])
             return out.permute(0, 3, 1, 2)
@@ -118,7 +122,7 @@ class VggPyramid(nn.Module):
                                 padding=1))
         return h
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
         cfg = self.cfg
         h = x.to(self.dtype).permute(0, 3, 1, 2)
         if h.is_cuda:
@@ -128,19 +132,22 @@ class VggPyramid(nn.Module):
         if ph or pw:
             h = F.pad(h, (pw, 0, ph, 0))
 
-        c1 = self._block(h, "conv1", cfg.conv1[0])
-        c2 = self._block(F.max_pool2d(c1, 2), "conv2", cfg.conv2[0])
-        c3 = self._block(F.max_pool2d(c2, 2), "conv3", cfg.conv3[0])
-        c4 = self._block(F.max_pool2d(c3, 2), "conv4", cfg.conv4[0])
+        c1 = self._block(h, "conv1", cfg.conv1[0], fused)
+        c2 = self._block(F.max_pool2d(c1, 2), "conv2", cfg.conv2[0], fused)
+        c3 = self._block(F.max_pool2d(c2, 2), "conv3", cfg.conv3[0], fused)
+        c4 = self._block(F.max_pool2d(c3, 2), "conv4", cfg.conv4[0], fused)
 
         u3 = F.relu(self.upconv3(c4, self.dtype))
-        f3 = self._block(torch.cat([c3, u3], dim=1), "pyramid_fusion3", 1)
+        f3 = self._block(torch.cat([c3, u3], dim=1), "pyramid_fusion3", 1,
+                         fused)
         u2 = F.relu(self.upconv2(f3, self.dtype))
-        f2 = self._block(torch.cat([c2, u2], dim=1), "pyramid_fusion2", 1)
+        f2 = self._block(torch.cat([c2, u2], dim=1), "pyramid_fusion2", 1,
+                         fused)
         if cfg.decode_stride == 2:
             return f2[:, :, ph // 2:, pw // 2:].permute(0, 2, 3, 1)
         u1 = F.relu(self.upconv1(f2, self.dtype))
-        f1 = self._block(torch.cat([c1, u1], dim=1), "pyramid_fusion1", 1)
+        f1 = self._block(torch.cat([c1, u1], dim=1), "pyramid_fusion1", 1,
+                         fused)
         return f1[:, :, ph:, pw:].permute(0, 2, 3, 1)
 
 

@@ -1,17 +1,32 @@
-"""Paired-frame DODT detector, eval paths (PyTorch port of
-dodt_tpu/models/dt_avod.py: the monolithic pair forward ``__call__`` in
-val mode as ``forward``, and the streaming ``encode_frame`` and
-``pair_stage``).
+"""Paired-frame DODT detector (PyTorch port of
+dodt_tpu/models/dt_avod.py): the monolithic pair forward ``__call__`` as
+``forward`` in val and train mode, the streaming ``encode_frame`` and
+``pair_stage``, and ``compute_losses``.
 
 Module and parameter names follow the Flax tree, so ``convert.py`` maps a
-JAX checkpoint onto ``DtAvodNet.state_dict()`` one to one. Eval only:
-no dropout and no path drop. Public tensors are NHWC like the JAX
-package's.
+JAX checkpoint onto ``DtAvodNet.state_dict()`` one to one. Public tensors
+are NHWC like the JAX package's.
+
+Randomness (dropout, path drop, mini-batch sampling) comes from a
+``rand(name, shape)`` callable returning uniform [0, 1) float32 draws:
+``generator_draws`` wraps an explicit ``torch.Generator``, and the tests
+inject the JAX package's draws under the same names:
+
+  pathdrop        (B, 3)          path-drop coin flips
+  <module>.<fc>   activation      dropout after each hidden FC layer
+                                  (e.g. ``rpn_cls.fc6``, ``avod_fc.fc0``)
+  rpn_mb          (B*F, 2, N)     in-forward RPN mini-batch, per frame row
+  loss_rpn        (B, F, 2, N)    RPN mini-batch in compute_losses
+  loss_avod       (B, F, 2, K)    second-stage mini-batch
+
+The (…, 2, N) draws rank positives ([..., 0, :]) and negatives
+([..., 1, :]), see ops/sampling.py.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +36,8 @@ import torch.nn.functional as F
 from dodt_tpu.config import PipelineConfig
 from dodt_tpu_torch.models.backbone import VggPyramid, preprocess_image
 from dodt_tpu_torch.ops import boxes as box_ops
+from dodt_tpu_torch.ops import sampling
+from dodt_tpu_torch.ops.losses import weighted_smooth_l1
 from dodt_tpu_torch.ops.anchors import integral_image_2d, tile_anchors_3d
 from dodt_tpu_torch.ops.correlation import corr_bottleneck, disp_grid
 from dodt_tpu_torch.ops.dense_rpn import (build_bev_lattice, dense_bev_rois,
@@ -30,9 +47,12 @@ from dodt_tpu_torch.ops.projection import (project_to_bev,
                                            project_to_image_space,
                                            reorder_boxes_yx)
 from dodt_tpu_torch.ops.roi import crop_and_resize
+from dodt_tpu_torch.ops.iou import aligned_iou_matrix
 from dodt_tpu_torch.ops.roi_window import (crop_and_resize_window,
                                            window_applies)
 from dodt_tpu_torch.ops.voxel import bev_maps_from_points
+
+Rand = Callable[[str, Tuple[int, ...]], torch.Tensor]
 
 # box-representation output sizes (dt_avod.py:166-169)
 OFFSETS_SIZE = {"box_3d": 6, "box_8c": 24, "box_8co": 24,
@@ -42,6 +62,29 @@ ANGLE_SIZE = {"box_3d": 2, "box_8c": 0, "box_8co": 0,
 # the decoded detections: what pair_stage returns and the evaluator reads
 FINAL_KEYS = ("final_boxes_3d", "final_orientations", "final_cls_softmax",
               "final_scores", "final_valid", "final_corr_offsets")
+
+
+def generator_draws(generator: torch.Generator) -> Rand:
+    """``rand`` drawing from ``generator`` on the generator's device."""
+    def rand(name: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        return torch.rand(shape, generator=generator,
+                          device=generator.device)
+    return rand
+
+
+def dropout(x: torch.Tensor, keep_prob: float, rand: Optional[Rand],
+            name: str) -> torch.Tensor:
+    """Flax ``nn.Dropout(1 - keep_prob)``: keep where the draw is below
+    the keep probability, scaled by its inverse; ``rand`` None is
+    deterministic."""
+    rate = 1.0 - keep_prob
+    if rand is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    u = rand(name, tuple(x.shape))
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class Dense(nn.Module):
@@ -58,35 +101,43 @@ class Dense(nn.Module):
 
 
 class MlpHead(nn.Module):
-    """FC stack ``fc6, fc7, ...`` + linear ``out``; computes in ``dtype``
-    and returns f32."""
+    """FC stack ``fc6, fc7, ...`` with dropout + linear ``out``; computes
+    in ``dtype`` and returns f32. ``scope`` names the dropout draws."""
 
     def __init__(self, d_in: int, sizes: Sequence[int], d_out: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, keep_prob: float, scope: str):
         super().__init__()
         self.dtype = dtype
+        self.keep_prob = keep_prob
+        self.scope = scope
         self.n_hidden = len(sizes)
         for i, s in enumerate(sizes):
             self.add_module(f"fc{6 + i}", Dense(d_in, s))
             d_in = s
         self.out = Dense(d_in, d_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rand: Optional[Rand] = None
+                ) -> torch.Tensor:
         for i in range(self.n_hidden):
             x = F.relu(getattr(self, f"fc{6 + i}")(x, self.dtype))
+            x = dropout(x, self.keep_prob, rand, f"{self.scope}.fc{6 + i}")
         return self.out(x, self.dtype).to(torch.float32)
 
 
-def feature_fuse(a: torch.Tensor, b: torch.Tensor, wa: float, wb: float,
+def feature_fuse(a: torch.Tensor, b: torch.Tensor, wa, wb,
                  method: str) -> torch.Tensor:
-    """Two-branch fusion (mean | concat | max) of pre-weighted inputs."""
+    """Two-branch fusion (mean | concat | max) of pre-weighted inputs;
+    the weights are floats or broadcastable path-drop masks."""
     a = a * wa
     b = b * wb
     if method == "concat":
         return torch.cat([a, b], dim=-1)
     if method == "max":
         return torch.maximum(a, b)
-    return (a + b) / max(wa + wb, 1.0)
+    div = wa + wb
+    if isinstance(div, torch.Tensor):
+        return (a + b) / torch.clamp(div, min=1.0)
+    return (a + b) / max(div, 1.0)
 
 
 class AvodTrunk(nn.Module):
@@ -96,7 +147,7 @@ class AvodTrunk(nn.Module):
 
     def __init__(self, d_in: int, sizes: Sequence[int],
                  out_dims: Sequence[int], fusion_type: str,
-                 fusion_method: str, dtype: torch.dtype):
+                 fusion_method: str, dtype: torch.dtype, keep_prob: float):
         super().__init__()
         if fusion_type != "early":
             raise NotImplementedError(
@@ -104,6 +155,7 @@ class AvodTrunk(nn.Module):
                 "early fusion only")
         self.fusion_method = fusion_method
         self.dtype = dtype
+        self.keep_prob = keep_prob
         self.n_hidden = len(sizes)
         d = 2 * d_in if fusion_method == "concat" else d_in
         for i, s in enumerate(sizes):
@@ -113,12 +165,17 @@ class AvodTrunk(nn.Module):
         for i, o in enumerate(out_dims):
             self.add_module(f"out{i}", Dense(d, o))
 
-    def forward(self, bev: torch.Tensor, img: torch.Tensor, wb: float,
-                wi: float) -> Tuple[torch.Tensor, ...]:
+    def forward(self, bev: torch.Tensor, img: torch.Tensor, wb, wi,
+                rand: Optional[Rand] = None) -> Tuple[torch.Tensor, ...]:
+        """wb, wi: floats or (M, 1) path-drop masks, applied in the
+        compute dtype as the Flax module does."""
+        if isinstance(wb, torch.Tensor):
+            wb, wi = wb.to(self.dtype), wi.to(self.dtype)
         h = feature_fuse(bev.to(self.dtype), img.to(self.dtype), wb, wi,
                          self.fusion_method)
         for i in range(self.n_hidden):
             h = F.relu(getattr(self, f"fc{i}")(h, self.dtype))
+            h = dropout(h, self.keep_prob, rand, f"avod_fc.fc{i}")
         return tuple(getattr(self, f"out{i}")(h, self.dtype)
                      .to(torch.float32) for i in range(self.n_out))
 
@@ -209,13 +266,15 @@ def _resize_to(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def bev_crop_fn(crop_size: int, window: int, map_shape, device):
+def bev_crop_fn(crop_size: int, window: int, train: bool, map_shape,
+                device):
     """Second-stage BEV crop over (M, H, W, C) maps and (M, N, 4) boxes:
-    the windowed kernel (B2) on the card when the map and its channel
-    alignment leave the window slack, the gather form otherwise and on
-    the CPU (the JAX model's dispatch, dt_avod.py:172-193)."""
-    if device.type != "cpu" and window_applies(*map_shape, crop_size,
-                                               window):
+    the windowed kernel (B2) at eval on the card when the map and its
+    channel alignment leave the window slack, the gather form (with
+    autograd) in training, otherwise and on the CPU (the JAX model's
+    dispatch, dt_avod.py:172-193)."""
+    if (not train and device.type != "cpu"
+            and window_applies(*map_shape, crop_size, window)):
         return lambda maps, bx: crop_and_resize_window(maps, bx, crop_size,
                                                        window)
     return lambda maps, bx: torch.stack(
@@ -230,9 +289,38 @@ def _take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
                                            + x.shape[dim + 1:]))
 
 
+def _path_drop_masks(rnd: torch.Tensor, p_img: float, p_bev: float):
+    """Per-sample path-drop coin flips from (B, 3) draws: keep each
+    branch with its probability; when both die, the third draw revives
+    one."""
+    img_chance = (rnd[:, 0] < p_img).to(torch.float32)
+    bev_chance = (rnd[:, 1] < p_bev).to(torch.float32)
+    both_dead = (img_chance + bev_chance) < 0.5
+    img_second = (rnd[:, 2] > 0.5).to(torch.float32)
+    bev_second = 1.0 - img_second
+    return (torch.where(both_dead, img_second, img_chance),
+            torch.where(both_dead, bev_second, bev_chance))
+
+
+class _TrainCtx:
+    """What the train-mode forward threads through the stages: dropout
+    draws (None: deterministic), per-row path-drop masks and the RPN
+    mini-batch inputs (None: not sampled)."""
+
+    def __init__(self, rand=None, bev_w=None, img_w=None, train_mode=False,
+                 mb=None):
+        self.rand = rand
+        self.bev_w, self.img_w = bev_w, img_w
+        self.train_mode = train_mode
+        self.mb = mb
+
+
+_EVAL = _TrainCtx()
+
+
 class DtAvodNet(nn.Module):
     """Paired-frame AVOD with correlation head: the monolithic pair
-    forward and the streaming interface."""
+    forward (val and train mode) and the streaming interface."""
 
     def __init__(self, cfg: PipelineConfig,
                  cluster_sizes: Tuple[Tuple[float, float, float], ...]):
@@ -255,8 +343,10 @@ class DtAvodNet(nn.Module):
         rpn_in = m.rpn.proposal_roi_crop_size ** 2 * bch
         if m.rpn.fusion_method == "concat":
             rpn_in *= 2
-        self.rpn_cls = MlpHead(rpn_in, m.rpn.cls_fc_sizes, 2, dtype)
-        self.rpn_reg = MlpHead(rpn_in, m.rpn.reg_fc_sizes, 6, dtype)
+        self.rpn_cls = MlpHead(rpn_in, m.rpn.cls_fc_sizes, 2, dtype,
+                               m.rpn.keep_prob, "rpn_cls")
+        self.rpn_reg = MlpHead(rpn_in, m.rpn.reg_fc_sizes, 6, dtype,
+                               m.rpn.keep_prob, "rpn_reg")
         rep = m.avod.box_representation
         out_dims = (self.num_classes, OFFSETS_SIZE[rep])
         if ANGLE_SIZE[rep]:
@@ -266,8 +356,10 @@ class DtAvodNet(nn.Module):
             raise ValueError("mean/max fusion needs equal tower widths")
         self.avod_fc = AvodTrunk(s2 * bev_ch, m.avod.fc_layer_sizes,
                                  out_dims, m.avod.fusion_type,
-                                 m.avod.fusion_method, dtype)
-        self.corr_fc = MlpHead(s2, m.avod.fc_layer_sizes, 3, dtype)
+                                 m.avod.fusion_method, dtype,
+                                 m.avod.keep_prob)
+        self.corr_fc = MlpHead(s2, m.avod.fc_layer_sizes, 3, dtype,
+                               m.avod.keep_prob, "corr_fc")
         self.lattice = build_bev_lattice(
             ku.area_extents, ku.anchor_strides, cluster_sizes, ku.bev_shape,
             ku.voxel_size, m.rpn.proposal_roi_crop_size)
@@ -281,13 +373,25 @@ class DtAvodNet(nn.Module):
     # and the monolithic forward run the same RPN and second-stage math;
     # the JAX package keeps two copies, the port one.
 
-    def _encode(self, points, points_valid, gps, images, p2, img_shapes
-                ) -> Dict[str, torch.Tensor]:
+    def _tower(self, tower: VggPyramid, x: torch.Tensor,
+               fused: bool) -> torch.Tensor:
+        """A tower in f32 out; ``remat_towers`` recomputes its
+        activations in the backward (the JAX model's nn.remat,
+        dt_avod.py:283-288)."""
+        if self.cfg.model.remat_towers and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+            y = checkpoint(tower, x, fused, use_reentrant=False)
+        else:
+            y = tower(x, fused)
+        return y.to(torch.float32)
+
+    def _encode(self, points, points_valid, gps, images, p2, img_shapes,
+                ctx: _TrainCtx = _EVAL) -> Dict[str, torch.Tensor]:
         """Encode M frame rows: rasterisation, anchors and the lattice's
         empty-anchor mask, both towers over all rows at once, then the
         RPN (``_rpn``). Returns bev_input, anchors (M, N, 6),
         anchor_valid (M, N), the f32 tower features and ``_rpn``'s
-        outputs."""
+        outputs. The conv-chain kernel runs on eval paths only."""
         ku = self.cfg.dataset.kitti_utils
         bg = ku.bev_generator
         if self.lattice is None:
@@ -305,21 +409,54 @@ class DtAvodNet(nn.Module):
             integral_image_2d(mp.occupancy), self.lattice,
             ku.density_threshold) for mp in maps])
         bev_input = torch.stack([mp.features for mp in maps])
-        bev_feats = self.bev_vgg_pyr(bev_input).to(torch.float32)
-        img_feats = self.img_vgg_pyr(
-            preprocess_image(images)).to(torch.float32)
+        fused = not ctx.train_mode
+        bev_feats = self._tower(self.bev_vgg_pyr, bev_input, fused)
+        img_feats = self._tower(self.img_vgg_pyr, preprocess_image(images),
+                                fused)
         return {"bev_input": bev_input, "anchors": anchors,
                 "anchor_valid": anchor_valid, "bev_feats": bev_feats,
                 "img_feats": img_feats,
                 **self._rpn(bev_feats, img_feats, anchors, anchor_valid, p2,
-                            img_shapes)}
+                            img_shapes, ctx)}
+
+    def _rpn_mini_batch(self, anchors, anchor_valid, mb):
+        """The RPN mini-batch sampled inside the forward (IoU-based,
+        score-free; dt_avod.py:479-511), per frame row: the indices of
+        the rpn_mini_batch_size sampled anchors (selected ones first)
+        and their sel / pos masks and offset targets."""
+        mbc = self.cfg.dataset.mini_batch
+        ext = self.cfg.dataset.kitti_utils.bev_extents
+        s_mb = mbc.rpn_mini_batch_size
+        if mb["rand"] is None:
+            raise ValueError("the RPN mini-batch needs rand "
+                             "(generator_draws)")
+        u = mb["rand"]("rpn_mb", (anchors.shape[0], 2, anchors.shape[1]))
+        gt_anchors = box_ops.box_3d_to_anchor(mb["gt_boxes"],
+                                              ortho_rotate=True)
+        gt_bev, _ = project_to_bev(gt_anchors, ext)
+        anchors_bev, _ = project_to_bev(anchors, ext)
+        tgt = sampling.assign_targets(anchors_bev, anchors, gt_bev,
+                                      gt_anchors, mb["gt_classes"],
+                                      mb["gt_valid"])
+        miou = torch.where(anchor_valid, tgt.max_iou, 0.0)
+        sel, pos = sampling.sample_mini_batch(
+            u, miou, s_mb, mbc.rpn_neg_iou_range,
+            mbc.rpn_pos_iou_range)
+        sel &= anchor_valid
+        pos &= anchor_valid
+        _, idx = top_k(sel.to(torch.float32), s_mb)
+        return idx, _take(sel, idx, 1), _take(pos, idx, 1), \
+            _take(tgt.offsets, idx, 1)
 
     def _rpn(self, bev_feats, img_feats, anchors, anchor_valid, p2,
-             img_shapes) -> Dict[str, torch.Tensor]:
+             img_shapes, ctx: _TrainCtx = _EVAL) -> Dict[str, torch.Tensor]:
         """Bottlenecks, dense-lattice RPN with (two-pass) image fusion and
         exact NMS, per frame row: objectness (M, K, 2), rpn_offsets
         (M, K, 6) over the K scored anchors (all of them, or the
-        fusion_top_k candidates), and the test_nms_size proposals."""
+        fusion_top_k candidates followed, when ``ctx.mb`` is set, by the
+        sampled mini-batch, whose head outputs and targets are returned
+        as ``rpn_mb``), and the test_nms_size (train_nms_size in train
+        mode) proposals."""
         ku = self.cfg.dataset.kitti_utils
         m = self.cfg.model
         lat = self.lattice
@@ -329,61 +466,87 @@ class DtAvodNet(nn.Module):
 
         b, n_anchors = anchors.shape[0], anchors.shape[1]
         crop_size = m.rpn.proposal_roi_crop_size
+        ones = anchors.new_ones(b)
+        bev_w = (ones if ctx.bev_w is None else ctx.bev_w)[:, None, None]
+        img_w = (ones if ctx.img_w is None else ctx.img_w)[:, None, None]
         bev_flat = torch.stack([dense_bev_rois(fm, lat)
                                 for fm in bev_bottle]).reshape(b, n_anchors,
                                                                -1)
         k_fuse = m.rpn.fusion_top_k
-        if k_fuse and k_fuse < n_anchors:
+        two_pass = bool(k_fuse) and k_fuse < n_anchors
+        sample_mb = two_pass and ctx.mb is not None
+        if two_pass:
             # two-pass fusion: rank all anchors by the BEV-only head
-            # score, fuse image ROIs only for the top-K candidates
-            pass1 = feature_fuse(bev_flat, torch.zeros_like(bev_flat), 1.0,
-                                 0.0, m.rpn.fusion_method)
+            # score (no gradient, no dropout), fuse image ROIs only for
+            # the top-K candidates and the sampled mini-batch
+            pass1 = feature_fuse(bev_flat.detach(),
+                                 torch.zeros_like(bev_flat), bev_w, 0.0,
+                                 m.rpn.fusion_method)
             obj1 = self.rpn_cls(pass1.reshape(b * n_anchors, -1)
                                 ).reshape(b, n_anchors, 2)
             s1 = torch.where(anchor_valid, obj1[..., 1] - obj1[..., 0],
                              -1e9)
-            _, cand_idx = top_k(s1, k_fuse)
-            cand_valid = _take(anchor_valid, cand_idx, 1)
-            cand_anchors = _take(anchors, cand_idx, 1)
-            bev_sel = _take(bev_flat, cand_idx, 1)
+            _, interest = top_k(s1, k_fuse)
+            if sample_mb:
+                mb_idx, mb_sel, mb_pos, mb_offt = self._rpn_mini_batch(
+                    anchors, anchor_valid, ctx.mb)
+                interest = torch.cat([interest, mb_idx], dim=-1)
+            int_valid = _take(anchor_valid, interest, 1)
+            int_anchors = _take(anchors, interest, 1)
+            bev_sel = _take(bev_flat, interest, 1)
         else:
             k_fuse = n_anchors
-            cand_valid, cand_anchors, bev_sel = anchor_valid, anchors, bev_flat
+            int_valid, int_anchors, bev_sel = anchor_valid, anchors, bev_flat
+        n_int = int_anchors.shape[1]
 
         img_rois = torch.stack([
             crop_and_resize(fm, reorder_boxes_yx(project_to_image_space(
                 anc, p2_, sh)[1]), crop_size)
-            for fm, anc, p2_, sh in zip(img_bottle, cand_anchors, p2,
+            for fm, anc, p2_, sh in zip(img_bottle, int_anchors, p2,
                                         img_shapes)])
-        fused = feature_fuse(bev_sel, img_rois.reshape(b, k_fuse, -1), 1.0,
-                             1.0, m.rpn.fusion_method)
-        flat = fused.reshape(b * k_fuse, -1)
-        objectness = self.rpn_cls(flat).reshape(b, k_fuse, 2)
-        rpn_offsets = self.rpn_reg(flat).reshape(b, k_fuse, 6)
+        fused = feature_fuse(bev_sel, img_rois.reshape(b, n_int, -1), bev_w,
+                             img_w, m.rpn.fusion_method)
+        flat = fused.reshape(b * n_int, -1)
+        objectness = self.rpn_cls(flat, ctx.rand).reshape(b, n_int, 2)
+        rpn_offsets = self.rpn_reg(flat, ctx.rand).reshape(b, n_int, 6)
+        proposals = box_ops.offset_to_anchor(int_anchors, rpn_offsets)
+        out = {}
+        if sample_mb:
+            out["rpn_mb"] = {"objectness": objectness[:, k_fuse:],
+                             "offsets": rpn_offsets[:, k_fuse:],
+                             "sel": mb_sel, "pos": mb_pos,
+                             "offset_targets": mb_offt}
+        # NMS over the candidates, not the appended mini-batch
+        nms_prop = proposals[:, :k_fuse]
+        nms_valid = int_valid[:, :k_fuse]
 
-        proposals = box_ops.offset_to_anchor(cand_anchors, rpn_offsets)
-        _, prop_bev_norm = project_to_bev(proposals, ku.bev_extents)
-        obj_scores = torch.softmax(objectness, dim=-1)[..., 1]
-        obj_scores = torch.where(cand_valid, obj_scores, -1.0)
-        k_rpn = m.rpn.test_nms_size
+        _, prop_bev_norm = project_to_bev(nms_prop, ku.bev_extents)
+        obj_scores = torch.softmax(objectness[:, :k_fuse], dim=-1)[..., 1]
+        obj_scores = torch.where(nms_valid, obj_scores, -1.0)
+        k_rpn = (m.rpn.train_nms_size if ctx.train_mode
+                 else m.rpn.test_nms_size)
         pre_idx, pre_valid = top_k_prefilter(
-            torch.where(cand_valid, obj_scores, -1e9), cand_valid,
+            torch.where(nms_valid, obj_scores, -1e9), nms_valid,
             min(4 * k_rpn, k_fuse))
-        keep, top_valid = nms_bev_exact(
-            _take(prop_bev_norm, pre_idx, 1), _take(obj_scores, pre_idx, 1),
-            pre_valid, k_rpn, m.rpn.nms_iou_thresh)
+        keep, top_valid = nms_bev_exact(       # indices: no graph
+            _take(prop_bev_norm.detach(), pre_idx, 1),
+            _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
+            m.rpn.nms_iou_thresh)
         top_idx = _take(pre_idx, keep, 1)
         return {"objectness": objectness, "rpn_offsets": rpn_offsets,
-                "top_anchors": _take(proposals, top_idx, 1),
+                "top_anchors": _take(nms_prop, top_idx, 1),
                 "top_scores": _take(obj_scores, top_idx, 1),
-                "top_valid": top_valid}
+                "top_valid": top_valid, **out}
 
     def _second_stage(self, bev_bf, img_bf, top_anchors, top_valid, gp, p2,
-                      img_shapes, expand: float) -> Dict[str, torch.Tensor]:
+                      img_shapes, expand: float, ctx: _TrainCtx = _EVAL
+                      ) -> Dict[str, torch.Tensor]:
         """Correlation of frame 0 against frame 1, second-stage crops,
         trunk, corr head, decode and final NMS over (B, F, ...) frame
         pairs. ``expand`` widens the proposals' x/z extents for the crops
-        only (``expand_proposals_xz``)."""
+        only (``expand_proposals_xz``). In train mode the crops take the
+        gather form, so gradients reach the maps and, through the
+        proposal coordinates, the RPN regression head."""
         ku = self.cfg.dataset.kitti_utils
         m = self.cfg.model
         corr_bottle = self.bev_corr_bottleneck(bev_bf[:, 0], bev_bf[:, 1])
@@ -402,16 +565,21 @@ class DtAvodNet(nn.Module):
 
         s = m.avod.proposal_roi_crop_size
         bev_maps = bev_bf.flatten(0, 1)                    # (B*F, H, W, C)
-        bev_crop = bev_crop_fn(s, m.avod.bev_roi_window, bev_maps.shape[1:],
-                               bev_maps.device)
+        bev_crop = bev_crop_fn(s, m.avod.bev_roi_window, ctx.train_mode,
+                               bev_maps.shape[1:], bev_maps.device)
         ss_bev_rois = bev_crop(bev_maps, ss_bev_yx.flatten(0, 1))
         ss_img_rois = torch.stack([
             crop_and_resize(fm, bx, s)
             for fm, bx in zip(img_bf.flatten(0, 1), ss_img_yx.flatten(0, 1))])
 
         rep = m.avod.box_representation
+        wb = wi = 1.0
+        if ctx.bev_w is not None:              # per couple -> per ROI row
+            wb = ctx.bev_w[::f].repeat_interleave(f * k)[:, None]
+            wi = ctx.img_w[::f].repeat_interleave(f * k)[:, None]
         branch = self.avod_fc(ss_bev_rois.reshape(b * f * k, -1),
-                              ss_img_rois.reshape(b * f * k, -1), 1.0, 1.0)
+                              ss_img_rois.reshape(b * f * k, -1), wb, wi,
+                              ctx.rand)
         cls_logits = branch[0].reshape(b, f, k, self.num_classes)
         box_offsets = branch[1].reshape(b, f, k, OFFSETS_SIZE[rep])
         angle_vecs = (branch[2].reshape(b, f, k, 2)
@@ -419,7 +587,7 @@ class DtAvodNet(nn.Module):
 
         corr_rois = torch.stack([crop_and_resize(cm, bx, s) for cm, bx in
                                  zip(corr_bottle, ss_bev_yx[:, 0])])
-        corr_offsets = self.corr_fc(corr_rois.reshape(b * k, -1)
+        corr_offsets = self.corr_fc(corr_rois.reshape(b * k, -1), ctx.rand
                                     ).reshape(b, k, 3)
 
         prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors, fix_lw=True)
@@ -428,14 +596,14 @@ class DtAvodNet(nn.Module):
         pred_boxes_3d, pred_orient = decode_predictions(
             rep, prop_enc, box_offsets, angle_vecs, gp4)
 
-        pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d,
+        pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
                                                 ortho_rotate=True)
         _, pred_bev_norm = project_to_bev(pred_anchors, ku.bev_extents)
         cls_softmax = torch.softmax(cls_logits, dim=-1)
         final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
-        f_idx, f_valid = nms_bev_exact(pred_bev_norm, final_scores_all,
-                                       top_valid, m.avod.nms_size,
-                                       m.avod.nms_iou_thresh)
+        f_idx, f_valid = nms_bev_exact(pred_bev_norm,
+                                       final_scores_all.detach(), top_valid,
+                                       m.avod.nms_size, m.avod.nms_iou_thresh)
         return {
             "corr_pred": corr_offsets,
             "proposal_boxes_3d": prop_boxes_3d, "proposal_enc": prop_enc,
@@ -453,47 +621,88 @@ class DtAvodNet(nn.Module):
         }
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, torch.Tensor], mode: str = "val"
+    def forward(self, batch: Dict[str, torch.Tensor], mode: str = "val",
+                train: bool = False, rand: Optional[Rand] = None
                 ) -> Dict[str, torch.Tensor]:
-        """The monolithic pair forward (the JAX ``__call__`` in eval).
+        """The monolithic pair forward (the JAX ``__call__(batch, train,
+        mode)``).
 
         batch (B couples, F = 2 frames): points (B, F, P, 3),
         points_valid (B, F, P), image (B, F, Hi, Wi, 3), ground_plane
-        (B, 4), p2 (B, 3, 4), orig_image_shape (B, 2). Both towers run
-        over all B*F frames at once. Returns every output of the JAX
-        ``__call__`` in val mode; ``angle_vectors`` is None for box
-        representations without an angle branch.
+        (B, 4), p2 (B, 3, 4), orig_image_shape (B, 2); with labels,
+        gt_boxes (B, F, G, 7), gt_classes, gt_valid (B, F, G),
+        corr_offsets (B, G, 3), corr_coexist (B, G). Both towers run over
+        all B*F frames at once. Returns every output of the JAX
+        ``__call__``; ``angle_vectors`` is None for box representations
+        without an angle branch.
+
+        ``mode="train"`` builds the autograd graph, runs the towers
+        without the conv-chain kernel and the second-stage BEV crops in
+        the gather form, keeps train_nms_size proposals and, on the
+        two-pass RPN with GT in the batch, samples the RPN mini-batch
+        (``rpn_mb``). ``train=True`` turns on dropout and path drop.
+        Other modes run under ``torch.no_grad()``. ``rand`` gives the
+        draws (module docstring); it is needed when anything is drawn.
         """
-        if mode == "train":
-            raise NotImplementedError(
-                "mode='train': losses, sampling and the trainer are not "
-                "ported (ROADMAP A9-A11)")
+        grad = contextlib.nullcontext() if mode == "train" \
+            else torch.no_grad()
+        with grad:
+            return self._forward(batch, mode, train, rand)
+
+    def _forward(self, batch, mode, train, rand):
+        m = self.cfg.model
         points = batch["points"]
         b, f = points.shape[0], points.shape[1]
         if f != 2:
             raise NotImplementedError(
                 f"{f} frames per sample: the port's forward is the paired "
                 "model; num_frames=1 is not ported (ROADMAP A15)")
+        dev = points.device
         gps = batch["ground_plane"].to(torch.float32)
         p2 = batch["p2"]
         img_shapes = batch["orig_image_shape"].to(torch.float32)
+        train_mode = mode == "train"
+        p_img, p_bev = m.path_drop_probabilities
+        drop_paths = train and not (p_img == p_bev == 1.0)
+        if rand is None and train:
+            raise ValueError("forward: dropout and path drop need rand "
+                             "(generator_draws)")
+
+        img_mask = bev_mask = torch.ones(b, device=dev)
+        if drop_paths:
+            img_mask, bev_mask = _path_drop_masks(rand("pathdrop", (b, 3)),
+                                                  p_img, p_bev)
 
         def per_frame(x):                         # (B, ...) -> (B*F, ...)
             return x.repeat_interleave(f, dim=0)
 
+        # m.train_crop_vjp picks the JAX crop VJP's form; every value is
+        # the gather's own VJP here, which autograd gives (ops/roi.py)
+        mb = None                # sampled on the two-pass route only
+        if train_mode and "gt_boxes" in batch:
+            mb = {"gt_boxes": batch["gt_boxes"].flatten(0, 1),
+                  "gt_classes": batch["gt_classes"].flatten(0, 1),
+                  "gt_valid": batch["gt_valid"].flatten(0, 1).bool(),
+                  "rand": rand}
+        ctx = _TrainCtx(rand=rand if train else None,
+                        bev_w=per_frame(bev_mask), img_w=per_frame(img_mask),
+                        train_mode=train_mode, mb=mb)
         enc = self._encode(points.flatten(0, 1),
                            batch["points_valid"].flatten(0, 1),
                            per_frame(gps), batch["image"].flatten(0, 1),
-                           per_frame(p2), per_frame(img_shapes))
+                           per_frame(p2), per_frame(img_shapes), ctx)
+        rpn_mb = enc.pop("rpn_mb", None)
         out = {k: v.reshape((b, f) + v.shape[1:]) for k, v in enc.items()}
+        if rpn_mb is not None:
+            out["rpn_mb"] = {k: v.reshape((b, f) + v.shape[1:])
+                             for k, v in rpn_mb.items()}
         out["anchors"] = out["anchors"][:, 0]
-        out["img_mask"] = torch.ones(b, device=points.device)
-        out["bev_mask"] = torch.ones(b, device=points.device)
+        out["img_mask"] = img_mask
+        out["bev_mask"] = bev_mask
         out.update(self._second_stage(
             out.pop("bev_feats"), out.pop("img_feats"), out["top_anchors"],
             out["top_valid"], gps, p2, img_shapes,
-            self.cfg.model.expand_proposals_xz))
+            m.expand_proposals_xz, ctx))
         return out
 
     @torch.no_grad()
@@ -552,3 +761,134 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 p.fill_(1.0)
             else:
                 p.zero_()
+
+
+# ---------------------------------------------------------------------------
+# Losses
+
+
+def compute_losses(cfg: PipelineConfig, outputs: Dict[str, torch.Tensor],
+                   batch: Dict[str, torch.Tensor], rand: Rand
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """RPN + AVOD + correlation losses (dt_avod.py:961-1143), batched
+    over (sample, frame) instead of vmapped. Mini-batch draws come from
+    ``rand`` ("loss_rpn", "loss_avod"; module docstring). Returns (total,
+    {rpn_cls, rpn_reg, avod_cls, avod_reg, avod_ang, corr, total})."""
+    ku = cfg.dataset.kitti_utils
+    mbc = cfg.dataset.mini_batch
+    lw = cfg.model.loss
+    eps = cfg.model.label_smoothing_epsilon
+    ext = ku.bev_extents
+
+    anchors = outputs["anchors"]                          # (B, N, 6)
+    b, f = outputs["objectness"].shape[0:2]
+    num_classes = outputs["cls_logits"].shape[-1]
+    gt_boxes = batch["gt_boxes"].to(torch.float32)        # (B, F, G, 7)
+    gt_classes = batch["gt_classes"].long()
+    gt_valid = batch["gt_valid"].bool()
+    gt_anchors = box_ops.box_3d_to_anchor(gt_boxes, ortho_rotate=True)
+    gt_bev, _ = project_to_bev(gt_anchors, ext)
+
+    def smoothed(labels, k):
+        return F.one_hot(labels, k).to(torch.float32) * (1 - 2 * eps) + eps
+
+    def ce_loss(logits, labels, sel):
+        ce = -(smoothed(labels, logits.shape[-1])
+               * F.log_softmax(logits, dim=-1)).sum(-1)
+        return (ce * sel).sum(-1) * lw.cls_loss_weight / torch.clamp(
+            sel.sum(-1), min=1)
+
+    if "rpn_mb" in outputs:
+        # the mini-batch was sampled inside the forward (two-pass RPN)
+        mb = outputs["rpn_mb"]
+        selw = mb["sel"].to(torch.float32)                # (B, F, S)
+        posw = mb["pos"].to(torch.float32)
+        rpn_cls = ce_loss(mb["objectness"], mb["pos"].long(), selw)
+        rpn_reg = (weighted_smooth_l1(mb["offsets"], mb["offset_targets"],
+                                      posw).sum(-1)
+                   * lw.reg_loss_weight / torch.clamp(posw.sum(-1), min=1))
+    else:
+        if outputs["objectness"].shape[2] != anchors.shape[1]:
+            raise ValueError("compute_losses on two-pass candidate outputs "
+                             "needs the in-forward mini-batch (mode='train' "
+                             "with GT in the batch)")
+        valid = outputs["anchor_valid"]                   # (B, F, N)
+        anchors_bev, _ = project_to_bev(anchors, ext)
+        tgt = sampling.assign_targets(anchors_bev[:, None], anchors[:, None],
+                                      gt_bev, gt_anchors, gt_classes,
+                                      gt_valid)
+        max_iou = torch.where(valid, tgt.max_iou, 0.0)
+        sel, pos = sampling.sample_mini_batch(
+            rand("loss_rpn", (b, f, 2, anchors.shape[1])), max_iou,
+            mbc.rpn_mini_batch_size, mbc.rpn_neg_iou_range,
+            mbc.rpn_pos_iou_range)
+        sel &= valid
+        pos &= valid
+        posw = pos.to(torch.float32)
+        rpn_cls = ce_loss(outputs["objectness"], pos.long(),
+                          sel.to(torch.float32))
+        rpn_reg = (weighted_smooth_l1(outputs["rpn_offsets"], tgt.offsets,
+                                      posw).sum(-1)
+                   * lw.reg_loss_weight / torch.clamp(posw.sum(-1), min=1))
+
+    # ---------------- second stage ------------------------------------
+    rep = cfg.model.avod.box_representation
+    if rep not in ("box_4c", "box_4ca"):
+        raise NotImplementedError(f"box representation {rep!r} is not "
+                                  "ported")
+    top_anchors = outputs["top_anchors"]                  # (B, F, K, 6)
+    top_valid = outputs["top_valid"]
+    k = top_anchors.shape[2]
+    top_bev, _ = project_to_bev(top_anchors, ext)
+    iou = torch.where(gt_valid[:, :, None, :],
+                      aligned_iou_matrix(top_bev, gt_bev), -1.0)
+    max_iou, gt_index = iou.max(dim=-1)                   # (B, F, K)
+    max_iou = torch.where(top_valid, torch.clamp(max_iou, min=0.0), 0.0)
+    sel, pos = sampling.sample_mini_batch(
+        rand("loss_avod", (b, f, 2, k)), max_iou, mbc.avod_mini_batch_size,
+        mbc.avod_neg_iou_range, mbc.avod_pos_iou_range)
+    sel &= top_valid
+    pos &= top_valid
+    posw = pos.to(torch.float32)
+    num_pos = torch.clamp(posw.sum(-1), min=1)
+
+    cls_gt = torch.where(pos, _take(gt_classes, gt_index, 2), 0)
+    avod_cls = ce_loss(outputs["cls_logits"], cls_gt, sel.to(torch.float32))
+
+    gt_best = _take(gt_boxes, gt_index, 2)                # (B, F, K, 7)
+    gp4 = batch["ground_plane"].to(torch.float32)[:, None, None, :]
+    off_gt = box_ops.box_3d_to_box_4c(gt_best, gp4) - outputs["proposal_enc"]
+    avod_reg = (weighted_smooth_l1(outputs["box_offsets"], off_gt, posw)
+                .sum(-1) * lw.reg_loss_weight / num_pos)
+    ang_pred = outputs["angle_vectors"]
+    have_angle = float(bool(ANGLE_SIZE[rep]))
+    if ang_pred is None:
+        ang_pred = top_anchors.new_zeros((b, f, k, 2))
+    ang_gt = box_ops.orientation_to_angle_vector(gt_best[..., 6])
+    avod_ang = (weighted_smooth_l1(ang_pred, ang_gt, posw).sum(-1)
+                * lw.ang_loss_weight / num_pos * have_angle)
+
+    # correlation loss, frame 0 only: targets gathered by the matched GT
+    if "corr_pred" in outputs:
+        corr_pred = outputs["corr_pred"]
+        corr_pred_bf = torch.stack([corr_pred, torch.zeros_like(corr_pred)],
+                                   dim=1)
+        corr_gt = _take(batch["corr_offsets"].to(torch.float32)[:, None]
+                        .expand(b, f, -1, 3), gt_index, 2)
+        coexist = _take(batch["corr_coexist"][:, None].expand(b, f, -1),
+                        gt_index, 2).to(torch.float32)
+        use_corr = torch.tensor([1.0, 0.0], device=posw.device)[:f]
+    else:
+        corr_pred_bf = corr_gt = top_anchors.new_zeros((b, f, k, 3))
+        coexist = top_anchors.new_zeros((b, f, k))
+        use_corr = top_anchors.new_zeros(f)
+    corr_w = posw * coexist * use_corr[None, :, None]
+    corr = (weighted_smooth_l1(corr_pred_bf, corr_gt, corr_w).sum(-1)
+            * lw.corr_loss_weight / torch.clamp(corr_w.sum(-1), min=1))
+
+    losses = {"rpn_cls": rpn_cls.mean(), "rpn_reg": rpn_reg.mean(),
+              "avod_cls": avod_cls.mean(), "avod_reg": avod_reg.mean(),
+              "avod_ang": avod_ang.mean(), "corr": corr.mean()}
+    total = sum(losses.values())
+    losses["total"] = total
+    return total, losses

@@ -1,5 +1,6 @@
-"""Box representations and codecs used by the streaming path (PyTorch
-port of dodt_tpu/ops/boxes.py; batched leading axes everywhere).
+"""Box representations and codecs used by the streaming path and the
+losses (PyTorch port of dodt_tpu/ops/boxes.py; batched leading axes
+everywhere).
 
   box_3d : [x, y, z, l, w, h, ry]       camera frame, y = bottom face
   anchor : [x, y, z, dim_x, dim_y, dim_z]  axis-aligned cuboid
@@ -43,12 +44,26 @@ def anchors_to_box_3d(anchors: torch.Tensor, fix_lw: bool = False
     return torch.stack([x, y, z, l, w, dim_y, ry], dim=-1)
 
 
+def anchor_to_offset(anchors: torch.Tensor, gt_anchors: torch.Tensor
+                     ) -> torch.Tensor:
+    """Encode matched GT anchors (..., 6) as offsets (..., 6) against
+    anchors: [dx/dim_x, dy/dim_y, dz/dim_z, log(dim_gt/dim), ...]."""
+    t_xyz = (gt_anchors[..., 0:3] - anchors[..., 0:3]) / anchors[..., 3:6]
+    t_dim = torch.log(gt_anchors[..., 3:6] / anchors[..., 3:6])
+    return torch.cat([t_xyz, t_dim], dim=-1)
+
+
 def offset_to_anchor(anchors: torch.Tensor, offsets: torch.Tensor
                      ) -> torch.Tensor:
     """Decode regression offsets (..., 6) against anchors (..., 6)."""
     xyz = offsets[..., 0:3] * anchors[..., 3:6] + anchors[..., 0:3]
     dim = torch.exp(torch.log(anchors[..., 3:6]) + offsets[..., 3:6])
     return torch.cat([xyz, dim], dim=-1)
+
+
+def orientation_to_angle_vector(ry: torch.Tensor) -> torch.Tensor:
+    """ry (...,) -> unit angle vector (..., 2)."""
+    return torch.stack([torch.cos(ry), torch.sin(ry)], dim=-1)
 
 
 def angle_vector_to_orientation(vec: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ activations on chip, as the Pallas kernel does, is later work.
 
 ``conv_chain`` dispatches on the input's device: CPU tensors take the
 plain PyTorch twin ``conv_chain_plain``, CUDA tensors the kernel (bf16
-only), anything else raises.
+only) inside an autograd Function whose backward is the twin's
+autograd, anything else raises. The model runs the kernel on eval
+paths only, as the JAX model does (dt_avod.py:389-394): training takes
+plain convolutions.
 """
 from __future__ import annotations
 
@@ -62,14 +65,9 @@ def conv3x3_bias_relu_cuda(x: torch.Tensor, w_kn: torch.Tensor,
     return y
 
 
-def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
-               biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """[3x3 SAME conv -> +bias -> ReLU] per stage over NHWC x
-    (B, H, W, Ci); weights OIHW (Co, Ci, 3, 3), biases (Co,)."""
-    if x.device.type == "cpu":
-        return conv_chain_plain(x, weights, biases)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_chain: no kernel for device {x.device}")
+def conv_chain_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                    biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The chain on the card, one kernel launch per stage."""
     h = x.contiguous()
     for w, b in zip(weights, biases):
         co, ci = w.shape[0], w.shape[1]
@@ -78,3 +76,38 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
             h, w_kn.to(torch.bfloat16).contiguous(),
             b.to(torch.float32).contiguous())
     return h
+
+
+class _ConvChain(torch.autograd.Function):
+    """The kernel forward; the backward is the twin's autograd,
+    recomputed from the saved input and parameters (the JAX custom_vjp
+    ``_conv_chain_tpu`` replays ``conv_chain_xla``, conv_chain.py:216-238;
+    there is no backward kernel). apply(x, *weights, *biases)."""
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        ctx.save_for_backward(x, *params)
+        n = len(params) // 2
+        return conv_chain_cuda(x, params[:n], params[n:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            x, params = saved[0], saved[1:]
+            n = len(params) // 2
+            out = conv_chain_plain(x, params[:n], params[n:])
+            grads = torch.autograd.grad(out, saved, grad)
+        return grads
+
+
+def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+               biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[3x3 SAME conv -> +bias -> ReLU] per stage over NHWC x
+    (B, H, W, Ci); weights OIHW (Co, Ci, 3, 3), biases (Co,).
+    Differentiable w.r.t. x and every weight and bias on both routes."""
+    if x.device.type == "cpu":
+        return conv_chain_plain(x, weights, biases)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_chain: no kernel for device {x.device}")
+    return _ConvChain.apply(x, *weights, *biases)

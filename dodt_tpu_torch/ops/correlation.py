@@ -92,12 +92,36 @@ def corr_bottleneck_cuda(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+class _CorrBottleneck(torch.autograd.Function):
+    """The kernel forward; the backward is the twin's autograd,
+    recomputed from the saved a, b and weights (the JAX custom_vjp's
+    backward through ``corr_bottleneck_xla``, correlation.py:282-287;
+    there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, a, b, weights, max_displacement, stride_2):
+        ctx.save_for_backward(a, b, weights)
+        ctx.args = (max_displacement, stride_2)
+        return corr_bottleneck_cuda(a, b, weights, max_displacement,
+                                    stride_2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            a, b, w = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensors)
+            out = corr_bottleneck_plain(a, b, w, *ctx.args)
+            ga, gb, gw = torch.autograd.grad(out, (a, b, w), grad)
+        return ga, gb, gw, None, None
+
+
 def corr_bottleneck(a: torch.Tensor, b: torch.Tensor, weights: torch.Tensor,
                     max_displacement: int, stride_2: int = 1
                     ) -> torch.Tensor:
     """Fused correlation + 1x1 contraction, channel-first output:
     (B, H, W, C) pairs -> (B, Cb, H, W); unbatched (H, W, C) -> (Cb, H,
-    W). Bias and norm are the caller's."""
+    W). Bias and norm are the caller's. Differentiable w.r.t. a, b and
+    the weights on both routes."""
     if a.dim() == 3:
         return corr_bottleneck(a[None], b[None], weights, max_displacement,
                                stride_2)[0]
@@ -106,7 +130,7 @@ def corr_bottleneck(a: torch.Tensor, b: torch.Tensor, weights: torch.Tensor,
                                      stride_2)
     if a.device.type != "cuda":
         raise ValueError(f"corr_bottleneck: no kernel for device {a.device}")
-    return corr_bottleneck_cuda(
+    return _CorrBottleneck.apply(
         a.to(torch.float32).contiguous(), b.to(torch.float32).contiguous(),
         weights.to(torch.float32).contiguous(), max_displacement, stride_2)
 

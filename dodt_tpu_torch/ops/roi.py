@@ -1,5 +1,4 @@
-"""Bilinear crop-and-resize, forward only (PyTorch port of
-dodt_tpu/ops/roi.py).
+"""Bilinear crop-and-resize (PyTorch port of dodt_tpu/ops/roi.py).
 
 Half-pixel convention: sample coordinate = norm * dim - 0.5, clamped to
 the map, so the sample lattice of the regular anchor grid is periodic
@@ -11,6 +10,17 @@ the map, so the sample lattice of the regular anchor grid is periodic
 
 ``auto_method`` makes the same static choice as the JAX package so the
 two packages agree to rounding on every shape.
+
+Gradients (w.r.t. the map and the boxes) are autograd's. The JAX
+package's training methods ``auto_train`` / ``gather_mmbwd`` keep the
+gather forward and swap in the matmul form's VJP, because TPU
+scatter-adds serialize; the two VJPs are the same function's (the same
+sample lattice and clamping), equal up to f32 summation order. On the
+card the gather's own backward (an index-add) is the plain route, so
+the port maps every training method onto its forward form with
+autograd: ``gather_mmbwd`` is ``gather``, ``auto_train`` is ``auto``.
+There is no proposal chunking to port: autograd's index-add backward
+never materialises the matmul form's (N, S, W, C) intermediate.
 """
 from __future__ import annotations
 
@@ -90,10 +100,17 @@ def crop_and_resize_gather(image: torch.Tensor, boxes_norm: torch.Tensor,
     return top + (bot - top) * y_frac
 
 
+# the JAX training methods -> the forward form they share
+TRAIN_METHODS = {"auto_train": "auto", "gather_mmbwd": "gather"}
+
+
 def crop_and_resize(image: torch.Tensor, boxes_norm: torch.Tensor,
                     crop_size: int, method: str = "auto") -> torch.Tensor:
     """(H, W, C) map, (N, 4) normalised [y1, x1, y2, x2] boxes ->
-    (N, S, S, C) crops. method: "auto" | "gather" | "matmul"."""
+    (N, S, S, C) crops. method: "auto" | "gather" | "matmul", or the
+    JAX training names "auto_train" | "gather_mmbwd" (the same forms
+    with autograd's VJP; see the module docstring)."""
+    method = TRAIN_METHODS.get(method, method)
     if method == "auto":
         method = auto_method(boxes_norm.shape[0], crop_size, image.shape,
                              image.element_size())

@@ -13,7 +13,9 @@ cast to bf16 and the crops are bf16.
 The CUDA kernel (``csrc/roi_window.cu``) samples the four taps of every
 output directly from the window in one launch for a batch of maps;
 ``crop_and_resize_window_plain`` is its PyTorch twin. CPU tensors take
-the twin, CUDA tensors the kernel, anything else raises.
+the twin, CUDA tensors the kernel, anything else raises. The kernel is
+eval-only, as in the JAX package (roi_pallas.py has no VJP): the CUDA
+route raises when a gradient is required.
 """
 from __future__ import annotations
 
@@ -152,6 +154,12 @@ def crop_and_resize_window(images: torch.Tensor, boxes_norm: torch.Tensor,
     if images.device.type != "cuda":
         raise ValueError(f"crop_and_resize_window: no kernel for device "
                          f"{images.device}")
+    if torch.is_grad_enabled() and (images.requires_grad
+                                    or boxes_norm.requires_grad):
+        # neither package defines this kernel's gradient: training
+        # crops take the gather form (bev_crop_fn)
+        raise RuntimeError("crop_and_resize_window has no gradient; "
+                           "use the gather crop (ops/roi.py) in training")
     return crop_and_resize_window_cuda(
         images.to(torch.bfloat16).contiguous(),
         boxes_norm.to(torch.float32).contiguous(), crop_size, window)

@@ -84,20 +84,28 @@ def test_round_trip_is_exact():
     assert "bev_bottleneck.GroupNorm_0.weight" in sd         # flax "scale"
 
 
-@pytest.mark.parametrize("probe", ["jax", "flax", "orbax"])
+@pytest.mark.parametrize("probe", ["jax", "flax", "orbax", "optax"])
 def test_port_imports_no_jax(probe):
     """Importing every dodt_tpu_torch module, and what chip_smoke.py and
     bench_torch.py import besides (the shared JAX-free host modules and
-    bench.py's input maker), leaves JAX, Flax and orbax out of
+    bench.py's input maker), leaves JAX, Flax, orbax and optax out of
     sys.modules (a fresh interpreter, so this process's imports don't
-    count)."""
+    count). The trainer is built too: its checkpoints, metrics logger
+    and optimiser must not reach for orbax or optax."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, sys, tempfile\n"
         "import dodt_tpu_torch, chip_smoke, bench, bench_torch\n"
         "import dodt_tpu.config, dodt_tpu.data.clusters\n"
         "for m in pkgutil.walk_packages(dodt_tpu_torch.__path__,\n"
         "                               'dodt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import torch\n"
+        "from dodt_tpu_torch.runtime import trainer\n"
+        "cfg = dodt_tpu.config.unittest_pipeline()\n"
+        "model = torch.nn.Linear(2, 2)\n"
+        "tr = trainer.Trainer(cfg, model, None, tempfile.mkdtemp())\n"
+        "tr.ckpt.save(1, trainer.create_train_state(cfg, model))\n"
+        "assert tr.ckpt.restore_params(1)\n"
         f"sys.exit(1 if {probe!r} in sys.modules else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -96,3 +96,63 @@ def test_correlation_kernel_matches_twin(dev, shape, md, s2):
     (tcorr.correlation_cf_plain(pa, pb, md, s2) * w).sum().backward()
     torch.testing.assert_close(ga.grad, pa.grad, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(gb.grad, pb.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_corr_bottleneck_gradients_are_the_twins(dev):
+    """B3 on the card carries a grad_fn; its gradients w.r.t. a, b and
+    the weights are the twin's autograd (1e-5)."""
+    g = torch.Generator().manual_seed(4)
+    a, b = (torch.randn(1, 30, 41, 16, generator=g).to(dev)
+            for _ in range(2))
+    w = torch.randn(121, 1, generator=g).to(dev)
+    cot = torch.randn(1, 1, 30, 41, generator=g).to(dev)
+    kern = [x.clone().requires_grad_() for x in (a, b, w)]
+    before = tcorr._KERNEL.launches
+    out = tcorr.corr_bottleneck(*kern, 5)
+    assert tcorr._KERNEL.launches == before + 1 and out.grad_fn is not None
+    (out * cot).sum().backward()
+    twins = [x.clone().requires_grad_() for x in (a, b, w)]
+    (tcorr.corr_bottleneck_plain(*twins, 5) * cot).sum().backward()
+    for got, want in zip(kern, twins):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_conv_chain_gradients_are_the_twins(dev):
+    """B1 on the card carries a grad_fn; its backward is the twin's
+    autograd from the saved inputs, so the gradients equal the twin's
+    up to cuDNN's summation order (1e-4 of their range)."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.relu(torch.randn(1, 12, 20, 32, generator=g)).to(
+        dev, torch.bfloat16).requires_grad_()
+    ws = [(torch.randn(co, ci, 3, 3, generator=g) / (3 * ci ** 0.5)).to(dev)
+          .requires_grad_() for ci, co in ((32, 64), (64, 16))]
+    bs = [(0.1 * torch.randn(co, generator=g)).to(dev).requires_grad_()
+          for co in (64, 16)]
+    cot = torch.randn(1, 12, 20, 16, generator=g).to(dev)
+    out = tcc.conv_chain(x, ws, bs)
+    assert out.grad_fn is not None
+    (out.float() * cot).sum().backward()
+    px = x.detach().clone().requires_grad_()
+    pws = [w.detach().clone().requires_grad_() for w in ws]
+    pbs = [b.detach().clone().requires_grad_() for b in bs]
+    (tcc.conv_chain_plain(px, pws, pbs).float() * cot).sum().backward()
+    for got, want in zip([x, *ws, *bs], [px, *pws, *pbs]):
+        scale = want.grad.float().abs().max()
+        assert (got.grad.float() - want.grad.float()).abs().max() \
+            <= 1e-4 * scale + 1e-6
+
+
+@pytest.mark.cuda
+def test_roi_window_refuses_gradients(dev):
+    """B2 has no gradient in either package: its CUDA route raises when
+    one is required, and runs under no_grad."""
+    maps = torch.randn(1, 96, 128, 32, device=dev, requires_grad=True)
+    boxes = torch.tensor([BOXES], device=dev)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        twin.crop_and_resize_window(maps, boxes, 7)
+    with torch.no_grad():
+        assert twin.crop_and_resize_window(maps, boxes, 7).shape == (
+            1, len(BOXES), 7, 7, 32)

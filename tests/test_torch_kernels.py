@@ -270,3 +270,68 @@ def test_crop_window_rejects_small_maps():
     with pytest.raises(ValueError):
         twin.crop_and_resize_window(torch.zeros(32, 32, 4),
                                     torch.zeros(2, 4), 7)
+
+
+# ---------------------------------------------------------------- gradients
+
+def _kernel_standin(plain):
+    """What a CUDA kernel returns: the right values and no autograd
+    graph (the twin under no_grad stands in for the ctypes call)."""
+    def call(*args):
+        with torch.no_grad():
+            return plain(*args)
+    return call
+
+
+@pytest.mark.parametrize("md,s2,cb", [(5, 1, 1), (4, 2, 2)])
+def test_corr_bottleneck_autograd_route_matches_twin(monkeypatch, md, s2,
+                                                     cb):
+    """B3's CUDA route (``_CorrBottleneck``) with the kernel call replaced
+    by a graph-less stand-in: the output carries a grad_fn, and the
+    gradients w.r.t. a, b and the weights are the twin's autograd (the
+    JAX custom_vjp's backward), equal to f32 rounding (1e-6). Without
+    the Function the kernel's output has no graph, so the weights would
+    get no gradient on the card."""
+    monkeypatch.setattr(tcorr, "corr_bottleneck_cuda",
+                        _kernel_standin(tcorr.corr_bottleneck_plain))
+    g = torch.Generator().manual_seed(6)
+    _, d = tcorr.disp_grid(md, s2)
+    a, b = (torch.randn(2, 10, 12, 8, generator=g) for _ in range(2))
+    w = torch.randn(d * d, cb, generator=g)
+    cot = torch.randn(2, cb, 10, 12, generator=g)
+    assert tcorr.corr_bottleneck_cuda(a, b, w, md, s2).grad_fn is None
+    leaves = [t.clone().requires_grad_() for t in (a, b, w)]
+    out = tcorr._CorrBottleneck.apply(*leaves, md, s2)
+    assert out.grad_fn is not None
+    (out * cot).sum().backward()
+    twins = [t.clone().requires_grad_() for t in (a, b, w)]
+    (tcorr.corr_bottleneck_plain(*twins, md, s2) * cot).sum().backward()
+    for got, want in zip(leaves, twins):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-6,
+                                   atol=1e-6)
+    assert float(leaves[2].grad.abs().max()) > 0
+
+
+def test_conv_chain_autograd_route_matches_twin(monkeypatch):
+    """B1's CUDA route (``_ConvChain``) with the kernel call replaced by a
+    graph-less stand-in: gradients w.r.t. the bf16 input and every f32
+    weight and bias are the twin's autograd (the JAX custom_vjp replays
+    conv_chain_xla), bit for bit."""
+    monkeypatch.setattr(tcc, "conv_chain_cuda",
+                        _kernel_standin(tcc.conv_chain_plain))
+    g = torch.Generator().manual_seed(7)
+    x = torch.relu(torch.randn(2, 9, 11, 16, generator=g)).to(torch.bfloat16)
+    ws = [torch.randn(co, ci, 3, 3, generator=g) / (9 * ci) ** 0.5
+          for ci, co in ((16, 24), (24, 8))]
+    bs = [0.1 * torch.randn(co, generator=g) for co in (24, 8)]
+    cot = torch.randn(2, 9, 11, 8, generator=g)
+    assert tcc.conv_chain_cuda(x, ws, bs).grad_fn is None
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+    out = tcc._ConvChain.apply(*leaves)
+    assert out.grad_fn is not None and out.dtype == torch.bfloat16
+    (out.float() * cot).sum().backward()
+    twins = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+    (tcc.conv_chain_plain(twins[0], twins[1:3], twins[3:]).float()
+     * cot).sum().backward()
+    for got, want in zip(leaves, twins):
+        assert torch.equal(got.grad, want.grad)

@@ -299,3 +299,164 @@ def test_resize_to_matches_jax_image_resize(hw, out):
     x = np.random.RandomState(13).randn(1, *hw, 1).astype(np.float32)
     close(tdt._resize_to(t(x), out), jdt._resize_to(jnp.asarray(x), out),
           atol=1e-6)
+
+
+# ---------------------------------------------------------------- losses
+
+from dodt_tpu.ops import losses as jloss          # noqa: E402
+from dodt_tpu.ops import sampling as jsamp        # noqa: E402
+from dodt_tpu_torch.ops import losses as tloss    # noqa: E402
+from dodt_tpu_torch.ops import sampling as tsamp  # noqa: E402
+
+
+def test_losses_match_jax():
+    """All five loss functions, f32: 1e-6 relative."""
+    rng = np.random.RandomState(21)
+    pred = rng.randn(40, 6).astype(np.float32) * 2
+    tgt = rng.randn(40, 6).astype(np.float32) * 2
+    w = rng.rand(40).astype(np.float32)
+    logits = rng.randn(40, 3).astype(np.float32)
+    labels = rng.randint(0, 3, 40)
+    onehot = np.eye(3, dtype=np.float32)[labels]
+    bin_t = rng.randint(0, 2, (40, 3)).astype(np.float32)
+    bin_w = rng.rand(40, 3).astype(np.float32)
+    pairs = [
+        (tloss.weighted_smooth_l1(t(pred), t(tgt), t(w)),
+         jloss.weighted_smooth_l1(pred, tgt, w)),
+        (tloss.weighted_softmax(t(logits), t(onehot), 0.7),
+         jloss.weighted_softmax(logits, onehot, 0.7)),
+        (tloss.weighted_sigmoid(t(logits), t(bin_t), t(bin_w)),
+         jloss.weighted_sigmoid(logits, bin_t, bin_w)),
+        (tloss.weighted_l2_localization(t(pred), t(tgt), t(w)),
+         jloss.weighted_l2_localization(pred, tgt, w)),
+        (tloss.label_smoothing_onehot(t(labels), 3, 0.01),
+         jloss.label_smoothing_onehot(jnp.asarray(labels), 3, 0.01)),
+    ]
+    for got, want in pairs:
+        close(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_box_codecs_for_losses_match_jax():
+    rng = np.random.RandomState(22)
+    a, g = _anchors(rng, 50), _anchors(rng, 50)
+    close(tbox.anchor_to_offset(t(a), t(g)), jbox.anchor_to_offset(a, g))
+    ry = rng.uniform(-np.pi, np.pi, 50).astype(np.float32)
+    close(tbox.orientation_to_angle_vector(t(ry)),
+          jbox.orientation_to_angle_vector(ry))
+
+
+# ---------------------------------------------------------------- sampling
+
+def _key_draws(key, n):
+    """The (2, n) uniforms JAX's balanced_sample draws from ``key``."""
+    kp, kn = jax.random.split(key)
+    return np.stack([np.asarray(jax.random.uniform(kp, (n,))),
+                     np.asarray(jax.random.uniform(kn, (n,)))])
+
+
+def test_assign_targets_matches_jax():
+    """Best-GT IoU, index, class and offsets per anchor, with padded GT
+    rows; batched over two rows against JAX per row. Indices equal,
+    floats 1e-5."""
+    rng = np.random.RandomState(23)
+    anc = _anchors(rng, 300)
+    anc[:, 3:] = [4.0, 1.5, 1.8]
+    gt = _boxes_3d(rng, 6)
+    gt[:2, 0:3] = anc[:2, 0:3]                     # some exact hits
+    gt_anc = np.asarray(jbox.box_3d_to_anchor(gt, ortho_rotate=True))
+    abev = np.asarray(jproj.project_to_bev(anc, BEV_EXTENTS)[0])
+    gbev = np.asarray(jproj.project_to_bev(gt_anc, BEV_EXTENTS)[0])
+    cls = rng.randint(1, 3, 6).astype(np.int32)
+    valid = np.array([True] * 4 + [False] * 2)
+    valid2 = np.array([False, True] * 3)
+    got = tsamp.assign_targets(t(abev), t(anc), t(np.stack([gbev, gbev])),
+                               t(np.stack([gt_anc, gt_anc])),
+                               t(np.stack([cls, cls])),
+                               t(np.stack([valid, valid2])))
+    for r, v in enumerate((valid, valid2)):
+        want = jsamp.assign_targets(abev, anc, gbev, gt_anc, cls, v)
+        assert float(want.max_iou.max()) > 0.5
+        close(got.max_iou[r], want.max_iou)
+        close(got.offsets[r], want.offsets, atol=1e-5)
+        np.testing.assert_array_equal(got.class_idx[r].numpy(),
+                                      np.asarray(want.class_idx))
+        matched = np.asarray(want.max_iou) > 0
+        np.testing.assert_array_equal(got.gt_index[r].numpy()[matched],
+                                      np.asarray(want.gt_index)[matched])
+
+
+@pytest.mark.parametrize("count", [0, 3, 40, 1000])
+def test_rank_mask_matches_jax(count):
+    rng = np.random.RandomState(24)
+    mask = rng.rand(500) < 0.3
+    key = jax.random.PRNGKey(count)
+    u = np.asarray(jax.random.uniform(key, (500,)))
+    want = jsamp._rank_mask(key, jnp.asarray(mask), count)
+    got = tsamp._rank_mask(t(u), t(mask), count)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got.sum()) == min(count, int(mask.sum()))
+
+
+@pytest.mark.parametrize("neg_range,pos_range,size", [
+    ((0.0, 0.3), (0.5, 1.0), 64),       # RPN ranges
+    ((0.0, 0.55), (0.65, 1.0), 1024),   # AVOD ranges, all eligible taken
+    ((0.1, 0.3), (0.5, 1.0), 64),       # neg_lo > 0
+    ((0.9, 0.95), (0.99, 1.0), 64),     # neg_lo > 0, nothing eligible
+])
+def test_sample_mini_batch_matches_jax(neg_range, pos_range, size):
+    """With the draws of JAX's keys, the port samples exactly JAX's
+    anchors, per row of a batch."""
+    rng = np.random.RandomState(25)
+    ious = np.where(rng.rand(3, 700) < 0.5, 0.0, rng.rand(3, 700)
+                    ).astype(np.float32)
+    ious[2] = np.minimum(ious[2], 0.5)                 # no positives
+    keys = jax.random.split(jax.random.PRNGKey(3), 3)
+    u = np.stack([_key_draws(k, 700) for k in keys])
+    sel, pos = tsamp.sample_mini_batch(t(u), t(ious), size, neg_range,
+                                       pos_range)
+    for r in range(3):
+        w_sel, w_pos = jsamp.sample_mini_batch(keys[r], jnp.asarray(ious[r]),
+                                               size, neg_range, pos_range)
+        np.testing.assert_array_equal(sel[r].numpy(), np.asarray(w_sel))
+        np.testing.assert_array_equal(pos[r].numpy(), np.asarray(w_pos))
+        assert int(pos[r].sum()) <= size // 2
+
+
+# ---------------------------------------------------------------- crop VJP
+
+def _crop_case(n, c, seed):
+    rng = np.random.RandomState(seed)
+    img = rng.randn(24, 40, c).astype(np.float32)
+    lo = rng.uniform(-0.1, 0.85, (n, 2))
+    boxes = np.concatenate([lo, lo + rng.uniform(0.02, 0.3, (n, 2))],
+                           -1).astype(np.float32)
+    cot = rng.randn(n, 7, 7, c).astype(np.float32)
+    return img, boxes, cot
+
+
+@pytest.mark.parametrize("method", ["gather_mmbwd", "auto_train"])
+@pytest.mark.parametrize("n,c,chunked", [(300, 8, False), (1024, 8, True),
+                                         (1000, 4, True), (600, 1, False)],
+                         ids=["small", "chunked", "n_not_512k", "thin"])
+def test_crop_gradients_match_jax_train_vjp(monkeypatch, method, n, c,
+                                            chunked):
+    """The port's training crop (gather forward, autograd backward)
+    against jax.vjp of JAX's crop_and_resize with its matmul-form VJP:
+    the gradients w.r.t. the map and the boxes, 1e-4 of their range
+    (f32 sums in another order). ``chunked`` shrinks JAX's chunk
+    threshold, as tests/test_ops.py does, so its VJP scans 512-proposal
+    chunks; at n % 512 != 0 JAX falls back to the unchunked form. Some
+    boxes clamp at the map edge."""
+    if chunked:
+        monkeypatch.setattr(jroi, "_BWD_CHUNK_BYTES", 0)
+    img, boxes, cot = _crop_case(n, c, 26 + n)
+    out, vjp = jax.vjp(lambda im, bx: jroi.crop_and_resize(
+        im, bx, 7, method=method), jnp.asarray(img), jnp.asarray(boxes))
+    w_img, w_box = vjp(jnp.asarray(cot))
+    ti, tb = t(img).requires_grad_(), t(boxes).requires_grad_()
+    got = troi.crop_and_resize(ti, tb, 7, method=method)
+    close(got.detach(), out)
+    (got * t(cot)).sum().backward()
+    for g, w in ((ti.grad, w_img), (tb.grad, w_box)):
+        w = np.asarray(w)
+        close(g, w, atol=1e-4 * np.abs(w).max(), rtol=1e-4)
