@@ -5,7 +5,8 @@ counterpart of bench.py, printing ONE JSON line with bench.py's keys.
     python3 bench_torch.py
 
 Inputs are bench.py's: cars_dt_tracking() with 65536 points and
-``bench.make_batch`` from seed 0; weights come from ``init_params`` with
+``make_batch`` (the port's copy of bench.py's, data/synthetic_scan.py)
+from seed 0; weights come from ``init_params`` with
 a torch.Generator seeded 0 (random weights: the work is the real work,
 the detections are not meaningful). TF32 is off, so every f32 op is a
 full f32 op, as in chip_smoke.py.
@@ -32,7 +33,6 @@ import time
 
 import numpy as np
 
-from bench import BASELINE_FPS, TAU, make_batch
 
 N_WARM, N_ITERS = 3, 20
 # dense bf16 tensor-core peak by card name (NVIDIA data sheets)
@@ -64,8 +64,10 @@ def main():
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from dodt_tpu.config import cars_dt_tracking
-    from dodt_tpu.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.data.synthetic_scan import (BASELINE_FPS, TAU,
+                                                    make_batch)
     from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
     from dodt_tpu_torch.runtime.predictor import StreamingPredictor
 

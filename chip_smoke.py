@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      both with CUDA events after warm-up; B4's gradient route against the
      twin's autograd;
   3. run the full-width cars_dt_tracking slice (seeded random weights,
-     bench.make_batch inputs, 65536 points) through StreamingPredictor on
+     make_batch inputs, 65536 points) through StreamingPredictor on
      the static arm and the ego-motion arm; outputs must be finite and
      shaped, and every kernel's launch counter, zeroed just before, must
      have grown;
@@ -26,7 +26,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      and on the CPU with the same weights and compare them;
   7. train the full-width cars_dt_tracking model (B = 1 couple, train=True:
      dropout, path drop, sampling) for a few steps through Trainer.train on
-     an in-memory stream (bench.make_batch's couple with seeded GT cars);
+     an in-memory stream (make_batch's couple with seeded GT cars);
      one step's gradients must be finite for every parameter and non-zero
      for B3's weights, every loss term finite and non-zero, B3's counter
      must grow and B1's and B2's (eval-only) stay 0; prints the median
@@ -38,7 +38,18 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
 twin's autograd backward) against the twins' autograd, and times B3's
-backward.
+backward. For each kernel it prints its time, the least time the card
+could take for the same work (bytes over HBM's rate or operations over
+the peak rate of their type, whichever is larger), the share of that
+bound, the time of the one PyTorch call that computes the same function
+(B1: cuDNN bf16 convs; B2: F.grid_sample; B3, B4: none) and the twin's.
+
+    python3 chip_smoke.py --compare-kernels DIR
+
+runs only phase 2, of the tree unpacked at DIR (for example the parent
+commit, ``git archive HEAD | tar -x -C build/parent``) and of this tree,
+each in its own process, in turns DIR, this, this, DIR, and prints each
+kernel's times.
 
 TF32 is off for the whole run (cuDNN and cuBLAS), so every f32 op on the
 card is a full f32 op and the comparisons measure the kernels alone.
@@ -59,6 +70,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_WARM, N_TIMED = 3, 20
+# published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
+# bf16 tensor cores, f32 outside them, HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def log(msg):
@@ -96,12 +110,28 @@ def rel_err(got, want):
     return float((g - w).abs().max()), float(w.abs().max())
 
 
+def bound(flops, peak, nbytes):
+    """(least ms the card could take, "operations" or "bytes"): the
+    larger of flops over the peak rate of their type and nbytes (each
+    input read once, each output written once) over HBM's rate."""
+    t_op, t_mem = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 # ---------------------------------------------------------------- phase 2
 
 def kernel_checks(dev):
-    """Each kernel against its plain twin at the main-path shapes.
-    Returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
+    """Each kernel against its plain twin at the main-path shapes (and
+    the small config's and odd ones), timed beside the twin, the one
+    PyTorch call that computes the same function where there is one,
+    and the least time the card could take. Returns {name: {"max_abs_err",
+    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}."""
     import torch
+    import torch.nn.functional as F
     from dodt_tpu_torch.ops import conv_chain as cc
     from dodt_tpu_torch.ops import correlation as corr
     from dodt_tpu_torch.ops import roi, roi_window
@@ -109,15 +139,14 @@ def kernel_checks(dev):
     g = torch.Generator().manual_seed(0)
     res = {}
 
-    # B1: conv4 block of both towers, 128 -> 256 -> 256 -> 256, bf16
-    chans = (128, 256, 256, 256)
-    ws = [(torch.randn(co, ci, 3, 3, generator=g) / (9 * ci) ** 0.5
-           ).to(dev) for ci, co in zip(chans[:-1], chans[1:])]
-    bs = [(0.1 * torch.randn(co, generator=g)).to(dev) for co in chans[1:]]
-    xs = [torch.relu(torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
-          for shape in ((1, 88, 100, 128), (1, 45, 150, 128))]
-    err = 0.0
-    for x in xs:
+    def chain_params(chans):
+        ws = [(torch.randn(co, ci, 3, 3, generator=g) / (9 * ci) ** 0.5
+               ).to(dev) for ci, co in zip(chans[:-1], chans[1:])]
+        bs = [(0.1 * torch.randn(co, generator=g)).to(dev)
+              for co in chans[1:]]
+        return ws, bs
+
+    def check_chain(x, ws, bs, what):
         got = cc.conv_chain(x, ws, bs)
         want = cc.conv_chain_plain(x, ws, bs)
         check(got.shape == want.shape and got.dtype == torch.bfloat16,
@@ -126,37 +155,55 @@ def kernel_checks(dev):
         # bf16 output: the twin rounds each stage once like the kernel;
         # the f32 sum order differs, so a rounding may flip by one ulp
         # and propagate: allow 2e-2 of the output's range (~5 ulps)
-        log(f"B1 conv_chain {tuple(x.shape)}: max_abs_err {e:.4g} "
+        log(f"B1 conv_chain {what} {tuple(x.shape)}: max_abs_err {e:.4g} "
             f"(max |ref| {scale:.4g})")
-        check(e <= 2e-2 * scale, f"conv_chain disagrees: {e} vs {scale}")
-        err = max(err, e)
-    # context only, not a twin: the same chain as cuDNN bf16 convs
+        check(e <= 2e-2 * scale, f"conv_chain {what} disagrees: {e} vs "
+              f"{scale}")
+        return e
+
+    # B1: conv4 block of both towers, 128 -> 256 -> 256 -> 256, bf16
+    chans = (128, 256, 256, 256)
+    ws, bs = chain_params(chans)
+    xs = [torch.relu(torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
+          for shape in ((1, 88, 100, 128), (1, 45, 150, 128))]
+    err = max(check_chain(x, ws, bs, "conv4") for x in xs)
+    # the monolithic forward hands B1 both frames of a couple at once
+    x2 = torch.relu(torch.randn((2, 88, 100, 128), generator=g)).to(
+        dev, torch.bfloat16)
+    check_chain(x2, ws, bs, "conv4")
+    del x2
+    # the small config's conv4 (16 -> 16, phases 4 and 6 at batch 4), and
+    # an odd-sized map through Ci and Co that are multiples of 8 only
+    for shape, ch in (((4, 30, 20, 16), (16, 16)),
+                      ((2, 13, 21, 40), (40, 72, 24))):
+        sw, sb = chain_params(ch)
+        check_chain(torch.relu(torch.randn(shape, generator=g)).to(
+            dev, torch.bfloat16), sw, sb, "small/odd")
+    # the library call: the same chain as cuDNN bf16 convs
     bf_ws = [w.to(torch.bfloat16) for w in ws]
     bf_bs = [b.to(torch.bfloat16) for b in bs]
 
     def cudnn_chain(x):
         h = x.permute(0, 3, 1, 2)
         for w, b in zip(bf_ws, bf_bs):
-            h = torch.relu(torch.nn.functional.conv2d(h, w, b, padding=1))
+            h = torch.relu(F.conv2d(h, w, b, padding=1))
         return h
 
-    # the monolithic forward hands B1 both frames of a couple at once
-    x2 = torch.relu(torch.randn((2, 88, 100, 128), generator=g)).to(
-        dev, torch.bfloat16)
-    e, scale = rel_err(cc.conv_chain(x2, ws, bs), cc.conv_chain_plain(x2, ws,
-                                                                      bs))
-    log(f"B1 conv_chain {tuple(x2.shape)}: max_abs_err {e:.4g} "
-        f"(max |ref| {scale:.4g})")
-    check(e <= 2e-2 * scale, f"conv_chain at batch 2 disagrees: {e}")
-    del x2
-    log("B1 context: cuDNN bf16 chain "
-        f"{sum(cuda_time_ms(lambda x=x: cudnn_chain(x)) for x in xs):.4f} ms")
+    px = sum(x.shape[0] * x.shape[1] * x.shape[2] for x in xs)
+    flops = 2 * 9 * px * sum(ci * co for ci, co in zip(chans[:-1],
+                                                       chans[1:]))
+    packs = [cc._packed(w, b) for w, b in zip(ws, bs)]
+    io = sum(nbytes(x) + x[..., :1].numel() * chans[-1] * 2 for x in xs)
     res["conv_chain"] = {
         "max_abs_err": err,
         "ms": sum(cuda_time_ms(lambda x=x: cc.conv_chain(x, ws, bs))
                   for x in xs),
         "plain_ms": sum(cuda_time_ms(lambda x=x: cc.conv_chain_plain(
-            x, ws, bs)) for x in xs)}
+            x, ws, bs)) for x in xs),
+        "library_ms": sum(cuda_time_ms(lambda x=x: cudnn_chain(x))
+                          for x in xs)}
+    res["conv_chain"]["bound_ms"], res["conv_chain"]["bound_by"] = bound(
+        flops, PEAK_BF16, io + sum(nbytes(*pk) for pk in packs))
 
     # B2: 2 frames x 300 proposals x 7x7 from (350, 400, 32) f32 maps.
     # Car-sized boxes in normalised BEV coords (80 m x 70 m map), and
@@ -186,29 +233,85 @@ def kernel_checks(dev):
     log(f"B2 roi_window vs gather on {int(fits.sum())} of {fits.numel()} "
         f"ROIs that fit: max_abs_err {e_g:.4g} (max |ref| {scale_g:.4g})")
     check(e_g <= 2e-2 * scale_g, f"roi_window disagrees with gather: {e_g}")
+    # the library call: F.grid_sample on the crops' sample lattice (the
+    # gather crop's, align_corners: pixel centres at -1 .. 1)
+    bx = boxes.reshape(-1, 4)
+    ys = roi.sample_grid(bx, 350, bx[:, 0], bx[:, 2], 7)
+    xs_ = roi.sample_grid(bx, 400, bx[:, 1], bx[:, 3], 7)
+    grid = torch.stack([(2 * xs_ / 399 - 1)[:, None, :].expand(-1, 7, 7),
+                        (2 * ys / 349 - 1)[:, :, None].expand(-1, 7, 7)],
+                       -1).reshape(2, 300 * 7, 7, 2)
+    maps_nchw = maps.permute(0, 3, 1, 2)
+
+    def grid_sample():
+        return F.grid_sample(maps_nchw, grid, align_corners=True)
+    lib = grid_sample().reshape(2, 32, 300, 7, 7).permute(0, 2, 3, 4, 1)
+    for what, sel in (("fitting", fits), ("all", slice(None))):
+        e_l, scale_l = rel_err(lib[sel], got[sel])
+        log(f"B2 library call F.grid_sample vs the kernel on {what} ROIs: "
+            f"max_abs_err {e_l:.4g} (max |ref| {scale_l:.4g}); within the "
+            f"bf16 tolerance (2e-2 of the range): {e_l <= 2e-2 * scale_l}")
+    # bytes: the distinct map pixels the crops tap (this run's boxes), the
+    # boxes and the bf16 crops; 3 adds + 6 mults per output value
+    oy, ox, ys_rel, xs_rel = roi_window._window_coords(maps.shape, boxes, 7,
+                                                       64)
+    iy = torch.clamp(ys_rel, 0, 63).floor().long()
+    ix = torch.clamp(xs_rel, 0, 63).floor().long()
+    tapped = torch.zeros((2, 350, 400), dtype=torch.bool, device=dev)
+    mi = torch.arange(2, device=dev).repeat_interleave(300)[:, None, None]
+    for dy in (0, 1):
+        for dx in (0, 1):
+            tapped[mi, (oy[:, None] + (iy + dy).clamp(max=63))[:, :, None],
+                   (ox[:, None] + (ix + dx).clamp(max=63))[:, None, :]] = True
     res["roi_window"] = {
         "max_abs_err": e,
         "ms": cuda_time_ms(lambda: roi_window.crop_and_resize_window(
             maps, boxes, 7)),
         "plain_ms": cuda_time_ms(
-            lambda: roi_window.crop_and_resize_window_plain(maps, boxes, 7))}
+            lambda: roi_window.crop_and_resize_window_plain(maps, boxes, 7)),
+        "library_ms": cuda_time_ms(grid_sample)}
+    res["roi_window"]["bound_ms"], res["roi_window"]["bound_by"] = bound(
+        9 * got.numel(), PEAK_F32,
+        int(tapped.sum()) * 32 * 4 + nbytes(boxes, got))
+    del gather, lib, maps, maps_nchw
 
     # B3: correlation (d = 5, 121 displacements) + (121, 1) bottleneck
     a = torch.randn((1, 350, 400, 32), generator=g).to(dev)
     b = torch.randn((1, 350, 400, 32), generator=g).to(dev)
     w = (torch.randn((121, 1), generator=g) / 11.0).to(dev)
-    got = corr.corr_bottleneck(a, b, w, 5)
-    want = corr.corr_bottleneck_plain(a, b, w, 5)
-    e, scale = rel_err(got, want)
-    # f32 sums of 121 x 32 products in another order: 1e-4 of the range
-    log(f"B3 corr_bottleneck (1, 350, 400, 32): max_abs_err {e:.4g} "
-        f"(max |ref| {scale:.4g})")
-    check(e <= 1e-4 * scale, f"corr_bottleneck disagrees: {e}")
+    err = 0.0
+    # the main path, the small config's d = 2 (D = 5) at batch 2, and
+    # Cb = 2..4 with stride_2 = 2 and odd sizes against the twin
+    for aa, bb, ww, md, s2 in (
+            (a, b, w, 5, 1),
+            *((torch.randn(shape, generator=g).to(dev),
+               torch.randn(shape, generator=g).to(dev),
+               (torch.randn((d * d, cb), generator=g) / d).to(dev), md, s2)
+              for shape, md, s2, d, cb in (
+                  ((2, 240, 160, 16), 2, 1, 5, 1),
+                  ((2, 61, 77, 8), 5, 2, 5, 2),
+                  ((2, 64, 96, 32), 5, 1, 11, 4),
+                  ((1, 33, 47, 24), 5, 1, 11, 3)))):
+        got = corr.corr_bottleneck(aa, bb, ww, md, s2)
+        want = corr.corr_bottleneck_plain(aa, bb, ww, md, s2)
+        check(got.shape == want.shape, f"corr_bottleneck shape {got.shape}")
+        e, scale = rel_err(got, want)
+        # f32 sums of D^2 x C products in another order: 1e-4 of the range
+        log(f"B3 corr_bottleneck {tuple(aa.shape)} d {md} stride_2 {s2} "
+            f"Cb {ww.shape[1]}: max_abs_err {e:.4g} (max |ref| {scale:.4g})")
+        check(e <= 1e-4 * scale, f"corr_bottleneck disagrees: {e}")
+        if aa is a:
+            err = e
+    px = 350 * 400
     res["corr_bottleneck"] = {
-        "max_abs_err": e,
+        "max_abs_err": err,
         "ms": cuda_time_ms(lambda: corr.corr_bottleneck(a, b, w, 5)),
         "plain_ms": cuda_time_ms(
-            lambda: corr.corr_bottleneck_plain(a, b, w, 5))}
+            lambda: corr.corr_bottleneck_plain(a, b, w, 5)),
+        "library_ms": None}
+    res["corr_bottleneck"]["bound_ms"], res["corr_bottleneck"]["bound_by"] = \
+        bound(2 * px * 121 * (32 + 1), PEAK_F32,
+              nbytes(a, b, w) + px * 4)
 
     # B4: the raw volume, (1, 350, 400, 32) f32, d = 5 -> (1, 121, 350, 400)
     # (67.8 MB), and a batched stride_2 = 2 case. f32 sums of C products in
@@ -240,11 +343,27 @@ def kernel_checks(dev):
     res["correlation_cf"] = {
         "max_abs_err": err,
         "ms": cuda_time_ms(lambda: corr.correlation_cf(a, b, 5)),
-        "plain_ms": cuda_time_ms(lambda: corr.correlation_cf_plain(a, b, 5))}
+        "plain_ms": cuda_time_ms(lambda: corr.correlation_cf_plain(a, b, 5)),
+        "library_ms": None}
+    res["correlation_cf"]["bound_ms"], res["correlation_cf"]["bound_by"] = \
+        bound(2 * px * 121 * 32, PEAK_F32, nbytes(a, b) + px * 121 * 4)
     autograd_checks(dev, res, a, b, w, ws, bs, xs)
-    for name, r in res.items():
-        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     return res
+
+
+def kernel_lines(res, card):
+    """One line per kernel: its time, its bound and share, the library
+    call's time and the twin's."""
+    lines = []
+    for name, r in res.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        lines.append(
+            f"{name}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), share of bound "
+            f"{r['bound_ms'] / r['ms']:.3f}, library {lib}, plain "
+            f"{r['plain_ms']:.4f} ms on {card}")
+    return lines
 
 
 def autograd_checks(dev, res, a, b, w, ws, bs, xs):
@@ -335,11 +454,11 @@ def check_outputs(out, k_final):
 
 def full_width(dev):
     """cars_dt_tracking at 65536 points on the card, seeded weights, and
-    bench.make_batch's couple (host arrays)."""
+    make_batch's couple (host arrays)."""
     import torch
-    from bench import make_batch
-    from dodt_tpu.config import cars_dt_tracking
-    from dodt_tpu.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
     from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
 
     cfg = cars_dt_tracking()
@@ -361,10 +480,11 @@ def full_slice(cfg, model, batch, counters):
 
     for c in counters:
         c.launches = 0
-    times, out, n_valid = {}, None, {}
+    times, out, n_valid, pushes = {}, None, {}, 0
     for arm, ego in (("static", None), ("ego", ego_motion())):
         pred.reset()
         pred.push_keyframe(frames[0], fetch=False)
+        pushes += 1 + N_WARM + 3 * N_TIMED
         for i in range(N_WARM):
             out = pred.push_keyframe(frames[(i + 1) % 2], fetch=False,
                                      ego_to_prev=ego)
@@ -389,13 +509,13 @@ def full_slice(cfg, model, batch, counters):
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
     for sym, n in launches.items():
         check(n > 0, f"kernel {sym} was not launched on the main path")
-    return times, launches
+    return times, launches, pushes
 
 
 # ---------------------------------------------------------------- phase 4
 
 def small_cfg():
-    from dodt_tpu.config import unittest_pipeline
+    from dodt_tpu_torch.config import unittest_pipeline
     cfg = unittest_pipeline()
     cfg.dataset.kitti_utils.area_extents = ((-16.0, 16.0), (-3.0, 3.0),
                                             (0.0, 48.0))
@@ -422,7 +542,7 @@ def cuda_vs_cpu(dev):
     """The small slice on the card against the same slice on the CPU."""
     import copy
     import torch
-    from bench import make_batch
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
     from dodt_tpu_torch.models.dt_avod import (DtAvodNet, bev_crop_fn,
                                                init_params)
     from dodt_tpu_torch.ops.projection import (project_to_bev,
@@ -560,7 +680,7 @@ def pair_forward(cfg, model, batch, counters):
         f"launches {launches}")
     for sym, n in launches.items():
         check(n > 0, f"kernel {sym} was not launched by the pair forward")
-    return float(np.median(rounds)), launches
+    return float(np.median(rounds)), launches, N_WARM + 3 * N_TIMED
 
 
 def correlation_op(dev, counter):
@@ -593,7 +713,7 @@ def forward_cuda_vs_cpu(dev):
     the same forward on the CPU (B1 at batch 4, B2 over 4 maps)."""
     import copy
     import torch
-    from bench import make_batch
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
     from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
 
     cfg = small_cfg()
@@ -667,7 +787,7 @@ def car_surface_points(rng, box, k):
 
 
 def train_batch(cfg, rng):
-    """bench.make_batch's couple with seeded GT in the dataset's keys
+    """make_batch's couple with seeded GT in the dataset's keys
     (dodt_tpu/data/tracking.py): two cars per frame, whose surface
     points overwrite both frames' scans. Random RPN weights score
     anchors arbitrarily, so the second stage holds a positive only if
@@ -675,7 +795,7 @@ def train_batch(cfg, rng):
     960 non-empty anchors (one stray scan point validates every anchor
     around it: with the scan kept, 52k), of which about 6 per frame
     pass the second stage's 0.65 IoU and 27 the RPN's 0.5."""
-    from bench import make_batch
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
     batch = make_batch(cfg, rng)
     g, n_gt = cfg.dataset.max_gt_boxes, 2
     boxes = car_boxes(rng, n_gt, float(batch["ground_plane"][0, 3]))
@@ -729,8 +849,8 @@ def full_width_training(dev, counters):
     TRAIN_STEPS steps. Returns (median step ms, peak MiB, launches)."""
     import shutil
     import torch
-    from dodt_tpu.config import cars_dt_tracking
-    from dodt_tpu.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
     from dodt_tpu_torch.models.dt_avod import (DtAvodNet, compute_losses,
                                                generator_draws, init_params)
     from dodt_tpu_torch.runtime.trainer import Trainer
@@ -811,7 +931,7 @@ def train_step_cuda_vs_cpu(dev):
     gradient are compared."""
     import copy
     import torch
-    from bench import make_batch
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
     from dodt_tpu_torch.models import dt_avod
     from dodt_tpu_torch.runtime.trainer import (create_train_state,
                                                 make_train_step)
@@ -888,12 +1008,49 @@ def train_step_cuda_vs_cpu(dev):
 
 # ---------------------------------------------------------------- main
 
+KERNELS_ONLY = (
+    "import json, sys, torch; sys.path.insert(0, '.'); import chip_smoke; "
+    "torch.backends.cuda.matmul.allow_tf32 = False; "
+    "torch.backends.cudnn.allow_tf32 = False; "
+    "r = chip_smoke.kernel_checks(torch.device('cuda', 0)); "
+    "print('KERNELS ' + json.dumps(r))")
+
+
+def compare_kernels(other):
+    """Phase 2 (build, check, time) of the tree at ``other`` (an unpacked
+    parent commit) and of this tree, each in a process of its own, in
+    turns: other, this, this, other. Prints each kernel's ms per run."""
+    runs = []
+    for tag, d in (("other", other), ("this", ROOT), ("this", ROOT),
+                   ("other", other)):
+        p = subprocess.run([sys.executable, "-c", KERNELS_ONLY], cwd=d,
+                           capture_output=True, text=True, timeout=1200)
+        found = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("KERNELS ")]
+        if p.returncode or not found:
+            log(f"compare: phase 2 of {d} failed (exit {p.returncode})\n"
+                f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+            return 1
+        runs.append((tag, json.loads(found[-1][len("KERNELS "):])))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        "card not read"
+    for name in runs[0][1]:
+        print(f"{name} kernel ms (other, this, this, other): " + ", ".join(
+            f"{r[name]['ms']:.4f}" for _, r in runs) + f" on {card}")
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this script "
             "runs only on a CUDA card")
         return 1
+    if sys.argv[1:2] == ["--compare-kernels"] and len(sys.argv) == 3:
+        return compare_kernels(os.path.abspath(sys.argv[2]))
     sys.path.insert(0, ROOT)
     try:
         from dodt_tpu_torch.ops import _cuda, conv_chain, correlation
@@ -927,11 +1084,12 @@ def main():
         kern = kernel_checks(dev)
         log("phase 2: kernels agree with their twins")
         cfg, model, batch = full_width(dev)
-        times, launches = full_slice(cfg, model, batch, counters)
+        times, launches, pushes = full_slice(cfg, model, batch, counters)
         log("phase 3: full-width slice ran on both arms")
         cuda_vs_cpu(dev)
         log("phase 4: CUDA slice agrees with the CPU slice")
-        pair_ms, fwd_launches = pair_forward(cfg, model, batch, counters)
+        pair_ms, fwd_launches, fwd_calls = pair_forward(cfg, model, batch,
+                                                        counters)
         del model
         op_launches = correlation_op(dev, correlation._CF_KERNEL)
         log("phase 5: full-width pair forward and B4's public op ran")
@@ -960,18 +1118,27 @@ def main():
           f"device memory {peak_mib:.0f} MiB on {card}")
     print(f"B3 backward ms: {kern['corr_bottleneck']['bwd_ms']:.4f}, forward "
           f"{kern['corr_bottleneck']['ms']:.4f} on {card}")
-    launches_by_path = {k.symbol: {"stream": launches[k.symbol],
-                                   "pair_forward": fwd_launches[k.symbol],
-                                   "train_step": train_launches[k.symbol]}
-                        for k in counters}
+    for line in kernel_lines(kern, card):
+        print(line)
+    # launches in each path's run, and per keyframe (pushes, the first of
+    # each arm encoding only), per pair forward and per train step
+    launches_by_path = {k.symbol: {
+        "stream": launches[k.symbol],
+        "per_keyframe": launches[k.symbol] / pushes,
+        "pair_forward": fwd_launches[k.symbol],
+        "per_pair_forward": fwd_launches[k.symbol] / fwd_calls,
+        "train_step": train_launches[k.symbol],
+        "per_train_step": train_launches[k.symbol] / TRAIN_STEPS}
+        for k in counters}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
         "correlation_op": op_launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(k.symbol, op_launches),
          "launches_by_path": launches_by_path[k.symbol],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]}
+         **{key: kern[name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name, (src, rep, k) in sources.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Flax parameter tree <-> ``DtAvodNet.state_dict()``.
+"""Flax parameter tree <-> ``DtAvodNet.state_dict()``, JAX train states
+and configs -> the port's.
 
 The port's modules carry the Flax names, so a state-dict key is the Flax
 path joined with dots, with the leaf names ``kernel`` and ``scale``
@@ -21,6 +22,14 @@ import numpy as np
 import torch
 
 _RENAME = {"kernel": "weight", "scale": "weight"}
+
+
+def config_from_json(cfg):
+    """Any pipeline config with ``to_json()`` (the JAX package's
+    ``PipelineConfig``) -> the port's ``PipelineConfig`` with the same
+    settings, through its JSON."""
+    from dodt_tpu_torch.config import PipelineConfig
+    return PipelineConfig.from_json(cfg.to_json())
 
 
 def _to_torch_layout(a: np.ndarray) -> np.ndarray:

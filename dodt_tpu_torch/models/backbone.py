@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dodt_tpu.config import FeatureExtractorConfig
+from dodt_tpu_torch.config import FeatureExtractorConfig
 from dodt_tpu_torch.ops.conv_chain import conv_chain
 
 KITTI_IMAGE_MEANS = (92.8403, 97.7996, 93.5843)  # img_feature_extractor.py:8

@@ -33,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dodt_tpu.config import PipelineConfig
+from dodt_tpu_torch.config import PipelineConfig
 from dodt_tpu_torch.models.backbone import VggPyramid, preprocess_image
 from dodt_tpu_torch.ops import boxes as box_ops
 from dodt_tpu_torch.ops import sampling

@@ -65,7 +65,9 @@ def corr_bottleneck_cuda(a: torch.Tensor, b: torch.Tensor,
                          weights: torch.Tensor, max_displacement: int,
                          stride_2: int = 1) -> torch.Tensor:
     """The kernel: a, b (B, H, W, C) f32, C % 8 == 0; weights (D^2, Cb)
-    f32, Cb <= 4 -> (B, Cb, H, W) f32."""
+    f32, Cb <= 4 -> (B, Cb, H, W) f32. Any max_displacement and stride_2
+    whose haloed tiles fit the card's 227 KB of shared memory (r s2 up
+    to about 30)."""
     _cuda.check_cuda_tensor("a", a, torch.float32, 4)
     _cuda.check_cuda_tensor("b", b, torch.float32, 4)
     _cuda.check_cuda_tensor("weights", weights, torch.float32, 2, align=4)
@@ -81,14 +83,15 @@ def corr_bottleneck_cuda(a: torch.Tensor, b: torch.Tensor,
                          f"({d * d}, Cb) with Cb <= {MAX_CB}")
     if not (a.device == b.device == weights.device):
         raise ValueError("a, b and weights must be on one device")
-    smem = _cuda.load().dodt_corr_bottleneck_smem_bytes(
-        max_displacement, stride_2, cb)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"max_displacement {max_displacement} needs "
-                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
+    lib = _cuda.load()
+    smem = lib.dodt_corr_bottleneck_smem_bytes(max_displacement, stride_2)
+    if smem > lib.dodt_corr_bottleneck_max_smem():
+        raise ValueError(f"max_displacement {max_displacement}, stride_2 "
+                         f"{stride_2} need {smem} B of shared memory")
     out = torch.empty((nb, cb, h, w), dtype=torch.float32, device=a.device)
-    _KERNEL(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(weights),
-            _cuda.ptr(out), nb, h, w, c, max_displacement, stride_2, cb)
+    if out.numel():
+        _KERNEL(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(weights),
+                _cuda.ptr(out), nb, h, w, c, max_displacement, stride_2, cb)
     return out
 
 

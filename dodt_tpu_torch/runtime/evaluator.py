@@ -20,9 +20,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dodt_tpu.config import PipelineConfig
-from dodt_tpu.eval import decode as decode_lib
-from dodt_tpu.utils.np_iou import rotated_iou_matrix
+from dodt_tpu_torch.config import PipelineConfig
+from dodt_tpu_torch.eval import decode as decode_lib
+from dodt_tpu_torch.utils.np_iou import rotated_iou_matrix
 from dodt_tpu_torch.models.dt_avod import (FINAL_KEYS, Rand,
                                            compute_losses, generator_draws)
 from dodt_tpu_torch.ops import boxes as box_ops

@@ -14,7 +14,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dodt_tpu.utils.metrics import latency_stats
+from dodt_tpu_torch.utils.metrics import latency_stats
 from dodt_tpu_torch.ops.warp import transform_anchors_xz, warp_bev_features
 
 

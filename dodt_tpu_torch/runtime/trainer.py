@@ -32,8 +32,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from dodt_tpu.config import PipelineConfig
+from dodt_tpu_torch.config import PipelineConfig
 from dodt_tpu_torch.models import dt_avod
+from dodt_tpu_torch.utils.metrics import MetricsLogger
 
 Params = Dict[str, torch.Tensor]
 SEED = 42                    # the JAX Trainer's PRNGKey(42)
@@ -365,7 +366,6 @@ class Trainer:
     def __init__(self, cfg: PipelineConfig, model: torch.nn.Module,
                  dataset, ckpt_dir: str, batch_size: int = 1,
                  metrics_path: Optional[str] = "auto"):
-        from dodt_tpu.utils.metrics import MetricsLogger
         self.cfg = cfg
         self.model = model
         self.dataset = dataset

@@ -15,6 +15,7 @@ import torch
 
 from dodt_tpu.config import FeatureExtractorConfig
 from dodt_tpu.models import backbone as jbb
+from dodt_tpu_torch import config as port_config
 from dodt_tpu_torch.convert import flax_to_state_dict
 from dodt_tpu_torch.models import backbone as tbb
 
@@ -39,7 +40,8 @@ def test_vgg_pyramid_matches_jax(cfg, shape):
     params = jt.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
     want = np.asarray(jax.jit(jt.apply)({"params": params}, jnp.asarray(x)))
 
-    tt = tbb.VggPyramid(cfg, in_channels=shape[-1], dtype=torch.float32)
+    tcfg = port_config.FeatureExtractorConfig(**dataclasses.asdict(cfg))
+    tt = tbb.VggPyramid(tcfg, in_channels=shape[-1], dtype=torch.float32)
     tt.load_state_dict(flax_to_state_dict(jax.tree_util.tree_map(
         np.asarray, params)), strict=True)
     with torch.no_grad():

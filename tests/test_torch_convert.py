@@ -12,7 +12,8 @@ import pytest
 from dodt_tpu import config as cfg_mod
 from dodt_tpu.data.clusters import DEFAULT_CAR_CLUSTERS
 from dodt_tpu.models import dt_avod as jdt
-from dodt_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
+from dodt_tpu_torch.convert import (config_from_json, flax_to_state_dict,
+                                    state_dict_to_flax)
 from dodt_tpu_torch.models import dt_avod as tdt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +52,7 @@ def test_flagship_param_tree_maps_onto_the_port():
                                    tree)
     sd = flax_to_state_dict(zeros)
     want = {k: tuple(v.shape) for k, v in
-            tdt.DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS).state_dict().items()}
+            tdt.DtAvodNet(config_from_json(cfg), DEFAULT_CAR_CLUSTERS).state_dict().items()}
     assert {k: tuple(v.shape) for k, v in sd.items()} == want
     assert len(sd) == len(_leaves(tree))
     assert "bev_vgg_pyr.conv1_0_kernel" in sd            # flat s2d stem
@@ -69,7 +70,7 @@ def test_round_trip_is_exact():
     params = jax.tree_util.tree_map(
         lambda s: rng.randn(*s.shape).astype(np.float32), tree)
     sd = flax_to_state_dict(params)
-    model = tdt.DtAvodNet(cfg, clusters)
+    model = tdt.DtAvodNet(config_from_json(cfg), clusters)
     model.load_state_dict(sd, strict=True)
     back = state_dict_to_flax(model.state_dict())
     want, got = _leaves(params), _leaves(back)
@@ -84,29 +85,34 @@ def test_round_trip_is_exact():
     assert "bev_bottleneck.GroupNorm_0.weight" in sd         # flax "scale"
 
 
-@pytest.mark.parametrize("probe", ["jax", "flax", "orbax", "optax"])
+@pytest.mark.parametrize("probe", ["jax", "flax", "orbax", "optax",
+                                   "dodt_tpu", "bench"])
 def test_port_imports_no_jax(probe):
-    """Importing every dodt_tpu_torch module, and what chip_smoke.py and
-    bench_torch.py import besides (the shared JAX-free host modules and
-    bench.py's input maker), leaves JAX, Flax, orbax and optax out of
-    sys.modules (a fresh interpreter, so this process's imports don't
-    count). The trainer is built too: its checkpoints, metrics logger
-    and optimiser must not reach for orbax or optax."""
+    """Importing every dodt_tpu_torch module, chip_smoke.py and
+    bench_torch.py leaves JAX, Flax, orbax and optax out of sys.modules,
+    and the JAX package (dodt_tpu, dodt_tpu.*) and bench.py too: the port
+    keeps its own copies of the host modules it needs. A fresh
+    interpreter, so this process's imports don't count. A Trainer is
+    built from the port's own config and checkpoints: its checkpoints,
+    metrics logger and optimiser must not reach for any of them."""
     code = (
         "import importlib, pkgutil, sys, tempfile\n"
-        "import dodt_tpu_torch, chip_smoke, bench, bench_torch\n"
-        "import dodt_tpu.config, dodt_tpu.data.clusters\n"
+        "import dodt_tpu_torch, chip_smoke, bench_torch\n"
         "for m in pkgutil.walk_packages(dodt_tpu_torch.__path__,\n"
         "                               'dodt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import torch\n"
+        "from dodt_tpu_torch.config import unittest_pipeline\n"
         "from dodt_tpu_torch.runtime import trainer\n"
-        "cfg = dodt_tpu.config.unittest_pipeline()\n"
+        "cfg = unittest_pipeline()\n"
         "model = torch.nn.Linear(2, 2)\n"
         "tr = trainer.Trainer(cfg, model, None, tempfile.mkdtemp())\n"
         "tr.ckpt.save(1, trainer.create_train_state(cfg, model))\n"
         "assert tr.ckpt.restore_params(1)\n"
-        f"sys.exit(1 if {probe!r} in sys.modules else 0)\n")
+        f"found = [m for m in sys.modules if m == {probe!r}\n"
+        f"         or m.startswith({probe!r} + '.')]\n"
+        "print(found, file=sys.stderr)\n"
+        "sys.exit(1 if found else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -156,3 +156,89 @@ def test_roi_window_refuses_gradients(dev):
     with torch.no_grad():
         assert twin.crop_and_resize_window(maps, boxes, 7).shape == (
             1, len(BOXES), 7, 7, 32)
+
+
+def _chain(g, dev, shape, chans):
+    x = torch.relu(torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
+    ws = [(torch.randn(co, ci, 3, 3, generator=g) / (9 * ci) ** 0.5).to(dev)
+          for ci, co in zip(chans[:-1], chans[1:])]
+    bs = [(0.1 * torch.randn(co, generator=g)).to(dev) for co in chans[1:]]
+    return x, ws, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chans", [
+    ((1, 88, 100, 128), (128, 256, 256, 256)),     # BEV conv4
+    ((2, 88, 100, 128), (128, 256, 256, 256)),     # both frames at once
+    ((1, 45, 150, 128), (128, 256, 256, 256)),     # image conv4
+    ((4, 30, 20, 16), (16, 16)),                   # the small config's
+    ((1, 37, 53, 24), (24, 40, 8))])               # odd map, BN 8
+def test_conv_chain_kernel_matches_twin_at_model_shapes(dev, shape, chans):
+    """The wgmma kernel at the towers' full-width conv4 shapes, the small
+    config's Co = 16 and an odd-sized map: one launch per stage, within
+    2e-2 of the range of the twin (bf16 rounded once per stage)."""
+    x, ws, bs = _chain(torch.Generator().manual_seed(10), dev, shape, chans)
+    before = tcc._KERNEL.launches
+    got = tcc.conv_chain(x, ws, bs).float()
+    assert tcc._KERNEL.launches == before + len(ws)
+    want = tcc.conv_chain_plain(x, ws, bs).float()
+    assert got.shape == want.shape == shape[:3] + (chans[-1],)
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_conv_chain_repacks_after_a_weight_update(dev):
+    """The cached pack follows an in-place update of the weights and the
+    biases (an optimiser step): the kernel then matches the twin on the
+    new parameters, not the old."""
+    g = torch.Generator().manual_seed(11)
+    x, ws, bs = _chain(g, dev, (1, 24, 32, 32), (32, 64, 32))
+    old = tcc.conv_chain(x, ws, bs).float()
+    with torch.no_grad():
+        ws[1].mul_(-1.0)
+        bs[0].add_(0.5)
+    got = tcc.conv_chain(x, ws, bs).float()
+    want = tcc.conv_chain_plain(x, ws, bs).float()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    assert (got - old).abs().max() > 0.1 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md,s2", [(5, 1), (2, 1), (5, 2), (2, 2), (9, 1)])
+@pytest.mark.parametrize("cb", [1, 2, 3, 4])
+def test_corr_bottleneck_kernel_matches_twin_at_every_cb(dev, md, s2, cb):
+    """D = 11 (the main path), D = 5 (the small config), stride_2 = 2 and
+    a displacement past the compiled instances (d = 9, the run-time
+    loops), Cb = 1..4, at B = 2 on an odd-sized map: one launch, within
+    1e-4 of the twin's range (f32 sums in another order)."""
+    g = torch.Generator().manual_seed(12)
+    _, d = tcorr.disp_grid(md, s2)
+    a, b = (torch.randn(2, 37, 45, 16, generator=g).to(dev)
+            for _ in range(2))
+    w = (torch.randn(d * d, cb, generator=g) / d).to(dev)
+    before = tcorr._KERNEL.launches
+    got = tcorr.corr_bottleneck(a, b, w, md, s2)
+    assert tcorr._KERNEL.launches == before + 1
+    want = tcorr.corr_bottleneck_plain(a, b, w, md, s2)
+    assert got.shape == want.shape == (2, cb, 37, 45)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md,s2,cb", [(2, 1, 1), (5, 2, 3)])
+def test_corr_bottleneck_gradients_are_the_twins_at_other_shapes(dev, md,
+                                                                 s2, cb):
+    """The redesigned forward keeps the twin's autograd as its backward:
+    gradients w.r.t. a, b and the weights equal the twin's (1e-5)."""
+    g = torch.Generator().manual_seed(13)
+    _, d = tcorr.disp_grid(md, s2)
+    a, b = (torch.randn(2, 21, 34, 8, generator=g).to(dev) for _ in range(2))
+    w = torch.randn(d * d, cb, generator=g).to(dev)
+    cot = torch.randn(2, cb, 21, 34, generator=g).to(dev)
+    kern = [x.clone().requires_grad_() for x in (a, b, w)]
+    (tcorr.corr_bottleneck(*kern, md, s2) * cot).sum().backward()
+    twins = [x.clone().requires_grad_() for x in (a, b, w)]
+    (tcorr.corr_bottleneck_plain(*twins, md, s2) * cot).sum().backward()
+    for got, want in zip(kern, twins):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-5,
+                                   atol=1e-5)

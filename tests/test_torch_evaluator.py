@@ -18,7 +18,7 @@ from dodt_tpu.data import synthetic, tracking
 from dodt_tpu.models import dt_avod as jdt
 from dodt_tpu.runtime.evaluator import Evaluator as JaxEvaluator
 from dodt_tpu.runtime.trainer import CheckpointIO, create_train_state
-from dodt_tpu_torch.convert import flax_to_state_dict
+from dodt_tpu_torch.convert import config_from_json, flax_to_state_dict
 from dodt_tpu_torch.models import dt_avod as tdt
 from dodt_tpu_torch.runtime.evaluator import Evaluator
 
@@ -50,9 +50,10 @@ def evaluators(tmp_path_factory):
     jev = JaxEvaluator(cfg, jmodel, ds, ckpt_dir=str(tmp / "ckpt"),
                        output_dir=str(tmp / "eval_jax"))
     params = jax.tree_util.tree_map(np.asarray, jev.ckpt.restore_params(1))
-    tmodel = tdt.DtAvodNet(cfg, CLUSTERS)
+    tcfg = config_from_json(cfg)
+    tmodel = tdt.DtAvodNet(tcfg, CLUSTERS)
     tmodel.load_state_dict(flax_to_state_dict(params), strict=True)
-    return cfg, ds, jev, params, Evaluator(cfg, tmodel.eval(), ds), tmp
+    return cfg, ds, jev, params, Evaluator(tcfg, tmodel.eval(), ds), tmp
 
 
 @pytest.mark.parametrize("idxs", [[0, 1, 2], [3]], ids=["full", "padded"])

@@ -22,7 +22,7 @@ import torch
 from dodt_tpu import config as cfg_mod
 from dodt_tpu.data import synthetic, tracking
 from dodt_tpu.models import dt_avod as jdt
-from dodt_tpu_torch.convert import flax_to_state_dict
+from dodt_tpu_torch.convert import config_from_json, flax_to_state_dict
 from dodt_tpu_torch.models import dt_avod as tdt
 from dodt_tpu_torch.runtime.predictor import StreamingPredictor
 
@@ -76,7 +76,7 @@ def _configured(cfg, fusion_top_k, expand):
 
 
 def _torch_model(cfg, params):
-    model = tdt.DtAvodNet(cfg, CLUSTERS)
+    model = tdt.DtAvodNet(config_from_json(cfg), CLUSTERS)
     model.load_state_dict(flax_to_state_dict(params), strict=True)
     return model.eval()
 

@@ -335,3 +335,37 @@ def test_conv_chain_autograd_route_matches_twin(monkeypatch):
      * cot).sum().backward()
     for got, want in zip(leaves, twins):
         assert torch.equal(got.grad, want.grad)
+
+
+@pytest.mark.parametrize("ci,co", [(16, 16), (128, 256), (40, 72)])
+def test_conv_chain_weight_pack_unpacks_to_hwio(ci, co):
+    """B1's K-major pack (Co, 9 * Ci), bf16, unpacks to the HWIO kernel
+    (the Flax layout) of the same bf16 weights, element for element."""
+    w = torch.randn(co, ci, 3, 3, generator=torch.Generator().manual_seed(8))
+    packed = tcc.pack_weights(w)
+    assert packed.shape == (co, 9 * ci) and packed.dtype == torch.bfloat16
+    assert packed.is_contiguous()
+    hwio = packed.reshape(co, 3, 3, ci).permute(1, 2, 3, 0)
+    assert torch.equal(hwio, w.permute(2, 3, 1, 0).to(torch.bfloat16))
+
+
+def test_conv_chain_pack_is_cached_until_a_parameter_changes():
+    """The pack and the f32 bias are made once per parameter and made
+    again when the weight or the bias is updated in place (an optimiser
+    step or load_state_dict bumps ``_version``)."""
+    g = torch.Generator().manual_seed(9)
+    conv = torch.nn.Conv2d(8, 16, 3)
+    w, b = conv.weight, conv.bias
+    first = tcc._packed(w, b)
+    assert tcc._packed(w, b)[0] is first[0]
+    with torch.no_grad():
+        w.add_(torch.randn(w.shape, generator=g))
+    second = tcc._packed(w, b)
+    assert second[0] is not first[0]
+    assert torch.equal(second[0], tcc.pack_weights(w))
+    assert torch.equal(second[1], b.detach())
+    conv.load_state_dict({"weight": w.detach().clone(),
+                          "bias": b.detach() + 1.0})
+    third = tcc._packed(w, b)
+    assert third[1] is not second[1]
+    assert torch.equal(third[1], b.detach()) and third[1].dtype == torch.float32

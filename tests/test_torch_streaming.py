@@ -21,7 +21,7 @@ from dodt_tpu import config as cfg_mod
 from dodt_tpu.data import synthetic, tracking
 from dodt_tpu.models import dt_avod as jdt
 from dodt_tpu.runtime.predictor import StreamingPredictor as JaxPredictor
-from dodt_tpu_torch.convert import flax_to_state_dict
+from dodt_tpu_torch.convert import config_from_json, flax_to_state_dict
 from dodt_tpu_torch.models import dt_avod as tdt
 from dodt_tpu_torch.runtime.predictor import StreamingPredictor
 
@@ -78,7 +78,7 @@ def runs(request, fixture):
     cfg0, params, frames = fixture
     cfg = _configured(cfg0, request.param)
     jmodel = jdt.DtAvodNet(cfg=cfg, cluster_sizes=CLUSTERS)
-    tmodel = tdt.DtAvodNet(cfg, CLUSTERS)
+    tmodel = tdt.DtAvodNet(config_from_json(cfg), CLUSTERS)
     tmodel.load_state_dict(flax_to_state_dict(params), strict=True)
     tmodel.eval()
     jp, tp = JaxPredictor(jmodel, params), StreamingPredictor(tmodel)
@@ -136,7 +136,7 @@ def latency(fixture):
     push_keyframe(fetch=True) calls (single-pass config)."""
     cfg, params, frames = fixture
     jp = JaxPredictor(jdt.DtAvodNet(cfg=cfg, cluster_sizes=CLUSTERS), params)
-    tmodel = tdt.DtAvodNet(cfg, CLUSTERS)
+    tmodel = tdt.DtAvodNet(config_from_json(cfg), CLUSTERS)
     tmodel.load_state_dict(flax_to_state_dict(params), strict=True)
     tp = StreamingPredictor(tmodel.eval())
     stats = []
