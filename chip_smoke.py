@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and prints no result:
+Phases, in order; any failure exits non-zero, prints "chip_smoke FAILED:"
+and its reason on stdout and stderr, and prints no result:
   1. build the CUDA kernel library from dodt_tpu_torch/csrc (nvcc, sm_90a,
-     one compiler process per source, all started together);
+     one compiler process per source, all started together); no kernel
+     may spill registers (the compiler's -Xptxas -v report);
   2. hold each kernel against its plain PyTorch twin on the card at the
-     shapes the model paths give it (and B4 at the public op's), and time
-     both with CUDA events after warm-up; B4's gradient route against the
-     twin's autograd;
+     shapes the model paths give it (B2 on f32 and bf16 maps, B4 at the
+     public op's and at other D, strides, channels, odd maps, N = 3 and
+     bf16 inputs), and time both after warm-up (timed(): per-call time
+     through the wrapper, device time with the host out of the way, host
+     time per enqueue); B4's gradient route against the twin's autograd;
   3. run the full-width cars_dt_tracking slice (seeded random weights,
      make_batch inputs, 65536 points) through StreamingPredictor on
      the static arm and the ego-motion arm; outputs must be finite and
      shaped, and every kernel's launch counter, zeroed just before, must
-     have grown;
+     have grown; one more keyframe, its aten ops counted, must launch B2
+     once and cast no whole f32 feature map to bf16;
   4. run a small config on the card and on the CPU with the same weights
      and compare the frame state and the final detections;
   5. run the full-width monolithic pair forward (DtAvodNet.forward, B = 1,
@@ -38,18 +43,25 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
 twin's autograd backward) against the twins' autograd, and times B3's
-backward. For each kernel it prints its time, the least time the card
-could take for the same work (bytes over HBM's rate or operations over
-the peak rate of their type, whichever is larger), the share of that
-bound, the time of the one PyTorch call that computes the same function
-(B1: cuDNN bf16 convs; B2: F.grid_sample; B3, B4: none) and the twin's.
+backward. For each kernel it prints its time through the wrapper
+(``ms``), its device time (``device_ms``) and host time per call
+(``host_us``), the least time the card could take for the same work
+(bytes over HBM's rate or operations over the peak rate of their type,
+whichever is larger) and that bound's share of ``device_ms``, the same
+three times of the one PyTorch call that computes the same function
+(B1: cuDNN bf16 convs; B2: F.grid_sample; B3, B4: none) and the twin's
+time. ``ms`` is what a host-bound caller pays; ``device_ms`` is the
+kernel's own work, so a kernel is compared with its library call by
+``device_ms``.
 
     python3 chip_smoke.py --compare-kernels DIR
 
-runs only phase 2, of the tree unpacked at DIR (for example the parent
-commit, ``git archive HEAD | tar -x -C build/parent``) and of this tree,
-each in its own process, in turns DIR, this, this, DIR, and prints each
-kernel's times.
+times the kernels of the tree unpacked at DIR (for example the parent
+commit, ``git archive HEAD | tar -x -C build/parent``) and of this tree
+with this file's timing code (kernel_times: the public functions both
+trees keep), each tree in its own process with its own kernel build, in
+turns DIR, this, this, DIR, and prints each kernel's and library call's
+ms, device_ms and host_us per turn, then one JSON line of them all.
 
 TF32 is off for the whole run (cuDNN and cuBLAS), so every f32 op on the
 card is a full f32 op and the comparisons measure the kernels alone.
@@ -62,6 +74,7 @@ error and times; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,8 +101,17 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
+def fail(msg):
+    """Report a failure on stdout and stderr alike; returns the exit
+    code."""
+    print(f"chip_smoke FAILED: {msg}", flush=True)
+    log(f"chip_smoke FAILED: {msg}")
+    return 1
+
+
 def cuda_time_ms(fn, n_warm=N_WARM, n_timed=N_TIMED):
-    """Mean device time of fn() over n_timed calls, CUDA events."""
+    """Mean time per call of n_timed back-to-back calls of fn(), CUDA
+    events: host and device as a caller meets them."""
     import torch
     for _ in range(n_warm):
         fn()
@@ -102,6 +124,47 @@ def cuda_time_ms(fn, n_warm=N_WARM, n_timed=N_TIMED):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n_timed
+
+
+SLEEP_CYCLES = 10_000_000      # torch.cuda._sleep: about 5-7 ms on an H100
+
+
+def timed(*fns, n_warm=N_WARM, n_timed=N_TIMED):
+    """Times of the calls fns(), each timed alone and summed:
+      ms         cuda_time_ms: the time a caller meets, host included
+                 wherever the host enqueues slower than the card runs;
+      device_ms  the same n_timed calls queued behind torch.cuda._sleep,
+                 which holds the card until the host has enqueued all of
+                 them (checked with the host clock, the sleep doubled
+                 until it holds), so the events bracket device work alone;
+      host_us    the host clock around those n_timed enqueues, per call.
+    """
+    import torch
+    out = {"ms": 0.0, "device_ms": 0.0, "host_us": 0.0}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for fn in fns:
+        out["ms"] += cuda_time_ms(fn, n_warm, n_timed)
+        cycles = SLEEP_CYCLES
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            torch.cuda._sleep(cycles)
+            ev[1].record()
+            t1 = time.perf_counter()
+            for _ in range(n_timed):
+                fn()
+            t2 = time.perf_counter()
+            ev[2].record()
+            torch.cuda.synchronize()
+            if (t2 - t0) * 1e3 < ev[0].elapsed_time(ev[1]):
+                break
+            cycles *= 2
+        else:
+            raise PhaseError("the host's enqueue outlasted the card's sleep")
+        out["device_ms"] += ev[1].elapsed_time(ev[2]) / n_timed
+        out["host_us"] += (t2 - t1) / n_timed * 1e6
+    return out
 
 
 def rel_err(got, want):
@@ -122,21 +185,130 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def spills(compiler_output):
+    """The kernels whose -Xptxas -v report has spill stores or loads."""
+    found, entry = [], None
+    for line in compiler_output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            found.append(entry)
+    return found
+
+
 # ---------------------------------------------------------------- phase 2
+
+def main_inputs(dev):
+    """B1-B4's inputs at the shapes the main paths give them, from seed
+    0: B1 both towers' conv4 (bf16 maps, 128 -> 256 -> 256 -> 256), B2
+    two f32 BEV maps with 300 car-sized boxes each in normalised BEV
+    coords (80 m x 70 m map; ten oversized ones exercise the window-edge
+    clamp), B3 and B4 two full-width BEV feature maps and B3's (121, 1)
+    bottleneck weights."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    chans = (128, 256, 256, 256)
+    ws = [(torch.randn(co, ci, 3, 3, generator=g) / (9 * ci) ** 0.5).to(dev)
+          for ci, co in zip(chans[:-1], chans[1:])]
+    bs = [(0.1 * torch.randn(co, generator=g)).to(dev) for co in chans[1:]]
+    xs = [torch.relu(torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
+          for shape in ((1, 88, 100, 128), (1, 45, 150, 128))]
+    maps = torch.randn((2, 350, 400, 32), generator=g).to(dev)
+    cy = torch.rand((2, 300), generator=g) * 0.9 + 0.05
+    cx = torch.rand((2, 300), generator=g) * 0.9 + 0.05
+    hy = (torch.rand((2, 300), generator=g) * 2.5 + 1.0) / 70.0
+    hx = (torch.rand((2, 300), generator=g) * 2.5 + 1.0) / 80.0
+    hy[:, :10] *= 6.0
+    hx[:, :10] *= 6.0
+    boxes = torch.stack([cy - hy, cx - hx, cy + hy, cx + hx], -1).to(dev)
+    a, b = (torch.randn((1, 350, 400, 32), generator=g).to(dev)
+            for _ in range(2))
+    w = (torch.randn((121, 1), generator=g) / 11.0).to(dev)
+    return {"chans": chans, "ws": ws, "bs": bs, "xs": xs, "maps": maps,
+            "boxes": boxes, "a": a, "b": b, "w": w}
+
+
+def library_calls(inp):
+    """The one PyTorch call that computes a kernel's function, where there
+    is one: B1's chain as cuDNN bf16 convs (a function of the map), B2
+    F.grid_sample on the crops' sample lattice (the gather crop's,
+    align_corners: pixel centres at -1 .. 1; it reads the f32 map and
+    agrees with B2 on the ROIs that fit their window). B3 and B4 have
+    none. The port calls neither."""
+    import torch
+    import torch.nn.functional as F
+    from dodt_tpu_torch.ops import roi
+    bf_ws = [w.to(torch.bfloat16) for w in inp["ws"]]
+    bf_bs = [b.to(torch.bfloat16) for b in inp["bs"]]
+
+    def cudnn_chain(x):
+        h = x.permute(0, 3, 1, 2)
+        for w, b in zip(bf_ws, bf_bs):
+            h = torch.relu(F.conv2d(h, w, b, padding=1))
+        return h
+
+    maps, boxes = inp["maps"], inp["boxes"]
+    m, hh, ww, _ = maps.shape
+    n = boxes.shape[1]
+    bx = boxes.reshape(-1, 4)
+    ys = roi.sample_grid(bx, hh, bx[:, 0], bx[:, 2], 7)
+    xs = roi.sample_grid(bx, ww, bx[:, 1], bx[:, 3], 7)
+    grid = torch.stack([(2 * xs / (ww - 1) - 1)[:, None, :].expand(-1, 7, 7),
+                        (2 * ys / (hh - 1) - 1)[:, :, None].expand(-1, 7, 7)],
+                       -1).reshape(m, n * 7, 7, 2)
+    maps_nchw = maps.permute(0, 3, 1, 2)
+
+    def grid_sample():
+        return F.grid_sample(maps_nchw, grid, align_corners=True)
+    return cudnn_chain, grid_sample
+
+
+def kernel_times(dev, inp=None):
+    """timed() of each kernel through its public function at the
+    main-path shapes, and of its library call: {name: {"ms", "device_ms",
+    "host_us", "library_ms", "library_device_ms", "library_host_us"}}.
+    It calls only what every tree of the port has, with the signatures
+    they all keep, so that --compare-kernels times another tree's kernels
+    with this tree's code."""
+    from dodt_tpu_torch.ops import conv_chain as cc
+    from dodt_tpu_torch.ops import correlation as corr
+    from dodt_tpu_torch.ops import roi_window
+    inp = inp or main_inputs(dev)
+    cudnn_chain, grid_sample = library_calls(inp)
+    ws, bs, xs = inp["ws"], inp["bs"], inp["xs"]
+    maps, boxes, a, b, w = (inp[k] for k in ("maps", "boxes", "a", "b", "w"))
+    pairs = {
+        "conv_chain": (
+            timed(*(lambda x=x: cc.conv_chain(x, ws, bs) for x in xs)),
+            timed(*(lambda x=x: cudnn_chain(x) for x in xs))),
+        "roi_window": (
+            timed(lambda: roi_window.crop_and_resize_window(maps, boxes, 7)),
+            timed(grid_sample)),
+        "corr_bottleneck": (timed(lambda: corr.corr_bottleneck(a, b, w, 5)),
+                            None),
+        "correlation_cf": (timed(lambda: corr.correlation_cf(a, b, 5)),
+                           None)}
+    return {name: {**k, **{"library_" + key: (lib or {}).get(key)
+                           for key in ("ms", "device_ms", "host_us")}}
+            for name, (k, lib) in pairs.items()}
+
 
 def kernel_checks(dev):
     """Each kernel against its plain twin at the main-path shapes (and
-    the small config's and odd ones), timed beside the twin, the one
-    PyTorch call that computes the same function where there is one,
-    and the least time the card could take. Returns {name: {"max_abs_err",
-    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}."""
+    the small config's and odd ones), timed (kernel_times) beside the
+    twin, with the least time the card could take. Returns {name:
+    {"max_abs_err", "plain_ms", "bound_ms", "bound_by", and
+    kernel_times' keys}}."""
     import torch
-    import torch.nn.functional as F
     from dodt_tpu_torch.ops import conv_chain as cc
     from dodt_tpu_torch.ops import correlation as corr
     from dodt_tpu_torch.ops import roi, roi_window
 
-    g = torch.Generator().manual_seed(0)
+    inp = main_inputs(dev)
+    g = torch.Generator().manual_seed(1)
     res = {}
 
     def chain_params(chans):
@@ -162,10 +334,7 @@ def kernel_checks(dev):
         return e
 
     # B1: conv4 block of both towers, 128 -> 256 -> 256 -> 256, bf16
-    chans = (128, 256, 256, 256)
-    ws, bs = chain_params(chans)
-    xs = [torch.relu(torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
-          for shape in ((1, 88, 100, 128), (1, 45, 150, 128))]
+    chans, ws, bs, xs = (inp[k] for k in ("chans", "ws", "bs", "xs"))
     err = max(check_chain(x, ws, bs, "conv4") for x in xs)
     # the monolithic forward hands B1 both frames of a couple at once
     x2 = torch.relu(torch.randn((2, 88, 100, 128), generator=g)).to(
@@ -179,16 +348,6 @@ def kernel_checks(dev):
         sw, sb = chain_params(ch)
         check_chain(torch.relu(torch.randn(shape, generator=g)).to(
             dev, torch.bfloat16), sw, sb, "small/odd")
-    # the library call: the same chain as cuDNN bf16 convs
-    bf_ws = [w.to(torch.bfloat16) for w in ws]
-    bf_bs = [b.to(torch.bfloat16) for b in bs]
-
-    def cudnn_chain(x):
-        h = x.permute(0, 3, 1, 2)
-        for w, b in zip(bf_ws, bf_bs):
-            h = torch.relu(F.conv2d(h, w, b, padding=1))
-        return h
-
     px = sum(x.shape[0] * x.shape[1] * x.shape[2] for x in xs)
     flops = 2 * 9 * px * sum(ci * co for ci, co in zip(chans[:-1],
                                                        chans[1:]))
@@ -196,36 +355,36 @@ def kernel_checks(dev):
     io = sum(nbytes(x) + x[..., :1].numel() * chans[-1] * 2 for x in xs)
     res["conv_chain"] = {
         "max_abs_err": err,
-        "ms": sum(cuda_time_ms(lambda x=x: cc.conv_chain(x, ws, bs))
-                  for x in xs),
         "plain_ms": sum(cuda_time_ms(lambda x=x: cc.conv_chain_plain(
-            x, ws, bs)) for x in xs),
-        "library_ms": sum(cuda_time_ms(lambda x=x: cudnn_chain(x))
-                          for x in xs)}
+            x, ws, bs)) for x in xs)}
     res["conv_chain"]["bound_ms"], res["conv_chain"]["bound_by"] = bound(
         flops, PEAK_BF16, io + sum(nbytes(*pk) for pk in packs))
 
-    # B2: 2 frames x 300 proposals x 7x7 from (350, 400, 32) f32 maps.
-    # Car-sized boxes in normalised BEV coords (80 m x 70 m map), and
-    # ten oversized ones that exercise the window-edge clamp.
-    maps = torch.randn((2, 350, 400, 32), generator=g).to(dev)
-    cy = torch.rand((2, 300), generator=g) * 0.9 + 0.05
-    cx = torch.rand((2, 300), generator=g) * 0.9 + 0.05
-    hy = (torch.rand((2, 300), generator=g) * 2.5 + 1.0) / 70.0
-    hx = (torch.rand((2, 300), generator=g) * 2.5 + 1.0) / 80.0
-    hy[:, :10] *= 6.0
-    hx[:, :10] *= 6.0
-    boxes = torch.stack([cy - hy, cx - hx, cy + hy, cx + hx], -1).to(dev)
+    # B2: 2 frames x 300 proposals x 7x7 from (350, 400, 32) f32 maps,
+    # read in their own dtype, and from the same maps in bf16
+    maps, boxes = inp["maps"], inp["boxes"]
     got = roi_window.crop_and_resize_window(maps, boxes, 7)
-    want = roi_window.crop_and_resize_window_plain(maps, boxes, 7)
-    e, scale = rel_err(got, want)
-    # the kernel computes the twin's f32 arithmetic without fused
-    # multiply-adds, so the bf16 outputs agree to within one rounding
-    log(f"B2 roi_window (2, 300, 7, 7, 32): max_abs_err vs twin {e:.4g} "
-        f"(max |ref| {scale:.4g})")
-    check(e <= 1e-2 * scale, f"roi_window disagrees with its twin: {e}")
+    maps_bf = maps.to(torch.bfloat16)
+    got_bf = roi_window.crop_and_resize_window(maps_bf, boxes, 7)
+    for what, crop, m_in in (("f32", got, maps), ("bf16", got_bf, maps_bf)):
+        want = roi_window.crop_and_resize_window_plain(m_in, boxes, 7)
+        e, scale = rel_err(crop, want)
+        # the kernel rounds each tap to bf16 (the twin casts the map) and
+        # blends in the twin's f32 arithmetic without fused multiply-
+        # adds: equal, and within one bf16 rounding at worst
+        log(f"B2 roi_window (2, 300, 7, 7, 32) on {what} maps: max_abs_err "
+            f"vs twin {e:.4g} (max |ref| {scale:.4g})")
+        check(e <= 1e-2 * scale, f"roi_window on {what} maps disagrees with "
+              f"its twin: {e}")
+        if what == "f32":
+            err = e
+    # a tap rounded to bf16 is the bf16 map's tap: the two crops are equal
+    e_fb = rel_err(got, got_bf)[0]
+    log(f"B2 crop of the f32 maps vs crop of their bf16 cast: max_abs_err "
+        f"{e_fb:.4g}")
+    check(e_fb == 0, f"roi_window f32 and bf16 maps differ by {e_fb}")
     # ROIs that fit their window: the window crop equals the gather crop
-    # up to the bf16 cast of the map
+    # up to the bf16 rounding of the taps
     gather = torch.stack([roi.crop_and_resize_gather(m, b, 7)
                           for m, b in zip(maps, boxes)])
     fits = roi_window.window_fits(maps.shape, boxes, 7)
@@ -233,19 +392,9 @@ def kernel_checks(dev):
     log(f"B2 roi_window vs gather on {int(fits.sum())} of {fits.numel()} "
         f"ROIs that fit: max_abs_err {e_g:.4g} (max |ref| {scale_g:.4g})")
     check(e_g <= 2e-2 * scale_g, f"roi_window disagrees with gather: {e_g}")
-    # the library call: F.grid_sample on the crops' sample lattice (the
-    # gather crop's, align_corners: pixel centres at -1 .. 1)
-    bx = boxes.reshape(-1, 4)
-    ys = roi.sample_grid(bx, 350, bx[:, 0], bx[:, 2], 7)
-    xs_ = roi.sample_grid(bx, 400, bx[:, 1], bx[:, 3], 7)
-    grid = torch.stack([(2 * xs_ / 399 - 1)[:, None, :].expand(-1, 7, 7),
-                        (2 * ys / 349 - 1)[:, :, None].expand(-1, 7, 7)],
-                       -1).reshape(2, 300 * 7, 7, 2)
-    maps_nchw = maps.permute(0, 3, 1, 2)
-
-    def grid_sample():
-        return F.grid_sample(maps_nchw, grid, align_corners=True)
-    lib = grid_sample().reshape(2, 32, 300, 7, 7).permute(0, 2, 3, 4, 1)
+    # the library call reproduces the crop on the ROIs that fit only
+    lib = library_calls(inp)[1]().reshape(2, 32, 300, 7, 7).permute(
+        0, 2, 3, 4, 1)
     for what, sel in (("fitting", fits), ("all", slice(None))):
         e_l, scale_l = rel_err(lib[sel], got[sel])
         log(f"B2 library call F.grid_sample vs the kernel on {what} ROIs: "
@@ -264,21 +413,16 @@ def kernel_checks(dev):
             tapped[mi, (oy[:, None] + (iy + dy).clamp(max=63))[:, :, None],
                    (ox[:, None] + (ix + dx).clamp(max=63))[:, None, :]] = True
     res["roi_window"] = {
-        "max_abs_err": e,
-        "ms": cuda_time_ms(lambda: roi_window.crop_and_resize_window(
-            maps, boxes, 7)),
+        "max_abs_err": err,
         "plain_ms": cuda_time_ms(
-            lambda: roi_window.crop_and_resize_window_plain(maps, boxes, 7)),
-        "library_ms": cuda_time_ms(grid_sample)}
+            lambda: roi_window.crop_and_resize_window_plain(maps, boxes, 7))}
     res["roi_window"]["bound_ms"], res["roi_window"]["bound_by"] = bound(
         9 * got.numel(), PEAK_F32,
         int(tapped.sum()) * 32 * 4 + nbytes(boxes, got))
-    del gather, lib, maps, maps_nchw
+    del gather, lib, maps_bf, got_bf
 
     # B3: correlation (d = 5, 121 displacements) + (121, 1) bottleneck
-    a = torch.randn((1, 350, 400, 32), generator=g).to(dev)
-    b = torch.randn((1, 350, 400, 32), generator=g).to(dev)
-    w = (torch.randn((121, 1), generator=g) / 11.0).to(dev)
+    a, b, w = inp["a"], inp["b"], inp["w"]
     err = 0.0
     # the main path, the small config's d = 2 (D = 5) at batch 2, and
     # Cb = 2..4 with stride_2 = 2 and odd sizes against the twin
@@ -305,31 +449,39 @@ def kernel_checks(dev):
     px = 350 * 400
     res["corr_bottleneck"] = {
         "max_abs_err": err,
-        "ms": cuda_time_ms(lambda: corr.corr_bottleneck(a, b, w, 5)),
         "plain_ms": cuda_time_ms(
-            lambda: corr.corr_bottleneck_plain(a, b, w, 5)),
-        "library_ms": None}
+            lambda: corr.corr_bottleneck_plain(a, b, w, 5))}
     res["corr_bottleneck"]["bound_ms"], res["corr_bottleneck"]["bound_by"] = \
         bound(2 * px * 121 * (32 + 1), PEAK_F32,
               nbytes(a, b, w) + px * 4)
 
     # B4: the raw volume, (1, 350, 400, 32) f32, d = 5 -> (1, 121, 350, 400)
-    # (67.8 MB), and a batched stride_2 = 2 case. f32 sums of C products in
+    # (67.8 MB); D = 5 and D = 11 at stride_2 = 2, D = 21, C = 8, 16 and
+    # 64, odd maps, N = 3, and bf16 inputs (an f32 volume, held against
+    # the twin on the inputs' f32 values). f32 sums of C products in
     # another order: 1e-5 of the range.
     err = 0.0
-    for aa, bb, s2 in ((a, b, 1), (torch.randn((2, 64, 96, 32), generator=g
-                                               ).to(dev),
-                                   torch.randn((2, 64, 96, 32), generator=g
-                                               ).to(dev), 2)):
-        got = corr.correlation_cf(aa, bb, 5, s2)
-        want = corr.correlation_cf_plain(aa, bb, 5, s2)
-        check(got.shape == want.shape, f"correlation_cf shape {got.shape}")
+    for shape, md, s2, dtype in (
+            ((1, 350, 400, 32), 5, 1, torch.float32),
+            ((2, 64, 96, 32), 5, 2, torch.float32),
+            ((2, 61, 77, 32), 10, 2, torch.float32),
+            ((1, 45, 67, 16), 10, 1, torch.float32),
+            ((3, 40, 72, 8), 5, 1, torch.float32),
+            ((1, 33, 50, 64), 5, 1, torch.float32),
+            ((2, 47, 81, 32), 5, 1, torch.bfloat16)):
+        aa, bb = (a, b) if shape == tuple(a.shape) else (
+            torch.randn(shape, generator=g).to(dev, dtype) for _ in range(2))
+        got = corr.correlation_cf(aa, bb, md, s2)
+        want = corr.correlation_cf_plain(aa.float(), bb.float(), md, s2)
+        check(got.shape == want.shape and got.dtype == torch.float32,
+              f"correlation_cf shape {got.shape} {got.dtype}")
         e, scale = rel_err(got, want)
         del got, want
-        log(f"B4 correlation_cf {tuple(aa.shape)} stride_2 {s2}: "
-            f"max_abs_err {e:.4g} (max |ref| {scale:.4g})")
+        log(f"B4 correlation_cf {tuple(aa.shape)} {str(dtype)[6:]} d {md} "
+            f"stride_2 {s2}: max_abs_err {e:.4g} (max |ref| {scale:.4g})")
         check(e <= 1e-5 * scale, f"correlation_cf disagrees: {e}")
-        err = max(err, e)
+        if aa is a:
+            err = e
     # the CUDA route's gradients are the twin's autograd
     ga, gb = (torch.randn((1, 20, 24, 8), generator=g).to(dev)
               .requires_grad_() for _ in range(2))
@@ -342,26 +494,29 @@ def kernel_checks(dev):
     check(e_grad <= 1e-5, f"correlation_cf gradient disagrees: {e_grad}")
     res["correlation_cf"] = {
         "max_abs_err": err,
-        "ms": cuda_time_ms(lambda: corr.correlation_cf(a, b, 5)),
-        "plain_ms": cuda_time_ms(lambda: corr.correlation_cf_plain(a, b, 5)),
-        "library_ms": None}
+        "plain_ms": cuda_time_ms(lambda: corr.correlation_cf_plain(a, b, 5))}
     res["correlation_cf"]["bound_ms"], res["correlation_cf"]["bound_by"] = \
         bound(2 * px * 121 * 32, PEAK_F32, nbytes(a, b) + px * 121 * 4)
     autograd_checks(dev, res, a, b, w, ws, bs, xs)
+    for name, t in kernel_times(dev, inp).items():
+        res[name].update(t)
     return res
 
 
 def kernel_lines(res, card):
-    """One line per kernel: its time, its bound and share, the library
-    call's time and the twin's."""
+    """One line per kernel: its time through the wrapper, its device time
+    and host time per call, its bound and the bound's share of the device
+    time, the library call's times and the twin's."""
     lines = []
     for name, r in res.items():
-        lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
+        lib = "none" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} "
+            f"ms, host {r['library_host_us']:.1f} us")
         lines.append(
-            f"{name}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), share of bound "
-            f"{r['bound_ms'] / r['ms']:.3f}, library {lib}, plain "
+            f"{name}: kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+            f"ms, host {r['host_us']:.1f} us per call, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+            f"{r['bound_ms'] / r['device_ms']:.3f}, library {lib}, plain "
             f"{r['plain_ms']:.4f} ms on {card}")
     return lines
 
@@ -509,7 +664,40 @@ def full_slice(cfg, model, batch, counters):
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
     for sym, n in launches.items():
         check(n > 0, f"kernel {sym} was not launched on the main path")
+    # one more keyframe with its aten ops counted: B2 runs once, on the
+    # f32 maps as they are (its wrapper no longer casts them to bf16)
+    b2 = next(c for c in counters if c.symbol == "dodt_roi_window")
+    before = b2.launches
+    casts = count_map_casts(lambda: pred.push_keyframe(
+        frames[0], fetch=False, ego_to_prev=ego_motion()))
+    log(f"one keyframe: B2 launched {b2.launches - before} time(s), casts "
+        f"of a whole f32 feature map to bf16: {len(casts)} {casts}")
+    check(b2.launches - before == 1, "B2 did not run once per keyframe")
+    check(not casts, f"the keyframe cast f32 feature maps {casts} to bf16")
     return times, launches, pushes
+
+
+def count_map_casts(fn, map_hwc=(350, 400, 32)):
+    """Run fn(); the shapes of the f32 tensors whose last three axes are
+    a whole feature map's (H, W, C) (the full-width BEV features by
+    default) that it cast to bf16, one per aten cast."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    casts = []
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if (func is torch.ops.aten._to_copy.default
+                    and kwargs.get("dtype") == torch.bfloat16
+                    and args[0].dtype == torch.float32
+                    and tuple(args[0].shape[-3:]) == map_hwc):
+                casts.append(tuple(args[0].shape))
+            return func(*args, **kwargs)
+
+    with Casts():
+        fn()
+    return casts
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1008,47 +1196,59 @@ def train_step_cuda_vs_cpu(dev):
 
 # ---------------------------------------------------------------- main
 
-KERNELS_ONLY = (
-    "import json, sys, torch; sys.path.insert(0, '.'); import chip_smoke; "
+# kernel_times of the tree in the working directory, timed by the
+# chip_smoke.py named in argv[1]
+KERNEL_TIMES = (
+    "import importlib.util, json, sys, torch; sys.path.insert(0, '.'); "
+    "spec = importlib.util.spec_from_file_location('timing', sys.argv[1]); "
+    "cs = importlib.util.module_from_spec(spec); "
+    "spec.loader.exec_module(cs); "
+    "from dodt_tpu_torch.ops import _cuda; _cuda.load(); "
     "torch.backends.cuda.matmul.allow_tf32 = False; "
     "torch.backends.cudnn.allow_tf32 = False; "
-    "r = chip_smoke.kernel_checks(torch.device('cuda', 0)); "
+    "r = cs.kernel_times(torch.device('cuda', 0)); "
     "print('KERNELS ' + json.dumps(r))")
 
 
 def compare_kernels(other):
-    """Phase 2 (build, check, time) of the tree at ``other`` (an unpacked
-    parent commit) and of this tree, each in a process of its own, in
-    turns: other, this, this, other. Prints each kernel's ms per run."""
+    """kernel_times of the tree at ``other`` (an unpacked parent commit)
+    and of this tree, both timed by this file's code, each tree in a
+    process of its own with its own kernel build, in turns: other, this,
+    this, other. Prints each kernel's and library call's ms, device_ms
+    and host_us per run."""
     runs = []
-    for tag, d in (("other", other), ("this", ROOT), ("this", ROOT),
-                   ("other", other)):
-        p = subprocess.run([sys.executable, "-c", KERNELS_ONLY], cwd=d,
+    for d in (other, ROOT, ROOT, other):
+        p = subprocess.run([sys.executable, "-c", KERNEL_TIMES,
+                            os.path.abspath(__file__)], cwd=d,
                            capture_output=True, text=True, timeout=1200)
         found = [ln for ln in p.stdout.splitlines()
                  if ln.startswith("KERNELS ")]
         if p.returncode or not found:
-            log(f"compare: phase 2 of {d} failed (exit {p.returncode})\n"
-                f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
-            return 1
-        runs.append((tag, json.loads(found[-1][len("KERNELS "):])))
+            log(f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+            return fail(f"compare: kernel times of {d} failed (exit "
+                        f"{p.returncode})")
+        runs.append(json.loads(found[-1][len("KERNELS "):]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         "card not read"
-    for name in runs[0][1]:
-        print(f"{name} kernel ms (other, this, this, other): " + ", ".join(
-            f"{r[name]['ms']:.4f}" for _, r in runs) + f" on {card}")
+    for name in runs[0]:
+        for key in ("ms", "device_ms", "host_us", "library_ms",
+                    "library_device_ms", "library_host_us"):
+            if runs[0][name][key] is not None:
+                print(f"{name} {key} (other, this, this, other): "
+                      + ", ".join(f"{r[name][key]:.4f}" for r in runs)
+                      + f" on {card}")
+    print(json.dumps({"compare_kernels": runs, "card": card}))
     return 0
 
 
 def main():
     import torch
     if not torch.cuda.is_available():
-        log("chip_smoke: torch.cuda.is_available() is false; this script "
-            "runs only on a CUDA card")
-        return 1
+        return fail("torch.cuda.is_available() is false; this script runs "
+                    "only on a CUDA card")
     if sys.argv[1:2] == ["--compare-kernels"] and len(sys.argv) == 3:
         return compare_kernels(os.path.abspath(sys.argv[2]))
     sys.path.insert(0, ROOT)
@@ -1056,9 +1256,8 @@ def main():
         from dodt_tpu_torch.ops import _cuda, conv_chain, correlation
         from dodt_tpu_torch.ops import roi_window
     except ImportError as exc:
-        log(f"chip_smoke: cannot import the port ({exc}); run it from the "
-            "repository root")
-        return 1
+        return fail(f"cannot import the port ({exc}); run it from the "
+                    "repository root")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1081,6 +1280,8 @@ def main():
         _cuda.load()
         log(f"phase 1: built {os.path.relpath(lib, ROOT)} in "
             f"{time.perf_counter() - t0:.1f} s\n{compiler_output}")
+        spilled = spills(compiler_output)
+        check(not spilled, f"kernels spill registers: {spilled}")
         kern = kernel_checks(dev)
         log("phase 2: kernels agree with their twins")
         cfg, model, batch = full_width(dev)
@@ -1101,15 +1302,17 @@ def main():
         train_step_cuda_vs_cpu(dev)
         log("phase 8: CUDA train step agrees with the CPU train step")
     except PhaseError as exc:
-        log(f"chip_smoke FAILED: {exc}")
-        return 1
+        return fail(str(exc))
+    except Exception as exc:                 # a build or launch error
+        import traceback
+        traceback.print_exc()
+        return fail(f"{type(exc).__name__}: {exc}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
-        log(f"chip_smoke: nvidia-smi failed: {smi.stderr}")
-        return 1
+        return fail(f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     for arm in ("static", "ego"):
         print(f"steady keyframe ms ({arm} arm): {times[arm]:.4f} on {card}")
@@ -1137,8 +1340,9 @@ def main():
          "launches": launches.get(k.symbol, op_launches),
          "launches_by_path": launches_by_path[k.symbol],
          **{key: kern[name][key] for key in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "library_device_ms",
+             "library_host_us")}}
         for name, (src, rep, k) in sources.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -126,8 +126,9 @@ class CudaKernel:
             fn.argtypes = [*self.argtypes, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._fn(*args, device.index or 0, ctypes.c_void_p(stream))
+        index = device.index or 0
+        # the current stream's handle, without building a Stream object
+        err = self._fn(*args, index, torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             msg = load().dodt_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

@@ -22,6 +22,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +32,50 @@ from dodt_tpu_torch.ops import _cuda
 _KERNEL = _cuda.CudaKernel("dodt_corr_bottleneck", [
     ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
 _CF_KERNEL = _cuda.CudaKernel("dodt_correlation_cf", [
-    ctypes.c_void_p] * 3 + [ctypes.c_int] * 6)
+    ctypes.c_void_p] * 3 + [ctypes.c_int] * 9)
 MAX_CB = 4                   # csrc/correlation.cu
-MAX_D = 21                   # csrc/correlation_cf.cu
-SMEM_LIMIT = 48 * 1024       # static launch without the opt-in attribute
+# csrc/correlation_cf.cu: displacements per axis, output columns per
+# block, (D bucket, output rows per thread) of its instances, and the
+# shared memory a block may take
+MAX_D = 21
+CF_COLS = 32
+CF_TILINGS = ((5, 8), (11, 5), (21, 2))
+CF_MAX_SMEM = 227 * 1024
+
+
+class CfGeometry(NamedTuple):
+    """B4's tiling: D, the instance's D bucket and output rows per thread
+    (a block is rows x CF_COLS pixels and a warp per displacement
+    column), the depth of the ring of staged channel slices and its
+    dynamic shared memory in bytes (each stage the haloed B tile and the
+    A tile, 4 f32 channels a pixel)."""
+    d: int
+    dmax: int
+    rows: int
+    stages: int
+    smem: int
+
+
+def cf_geometry(max_displacement: int, stride_2: int) -> CfGeometry:
+    """The tiling csrc/correlation_cf.cu launches: the smallest D bucket
+    that holds D, so that a thread keeps rows x D <= 55 accumulators,
+    and a four-stage ring where it fits in shared memory, else two
+    stages; a ValueError where two do not fit."""
+    _, d = disp_grid(max_displacement, stride_2)
+    if d > MAX_D:
+        raise ValueError(f"correlation_cf kernel takes D <= {MAX_D}, got "
+                         f"{d} (max_displacement {max_displacement}, "
+                         f"stride_2 {stride_2})")
+    dmax, rows = next(t for t in CF_TILINGS if d <= t[0])
+    span = (d - 1) * stride_2
+    stage = (rows + span) * (CF_COLS + span) + rows * CF_COLS
+    stages = 4 if 4 * stage * 16 <= CF_MAX_SMEM else 2
+    if stages * stage * 16 > CF_MAX_SMEM:
+        raise ValueError(f"max_displacement {max_displacement}, stride_2 "
+                         f"{stride_2}: the haloed tiles need "
+                         f"{stages * stage * 16} B of shared memory, more "
+                         f"than the card's {CF_MAX_SMEM}")
+    return CfGeometry(d, dmax, rows, stages, stages * stage * 16)
 
 
 def disp_grid(max_displacement: int, stride_2: int):
@@ -160,30 +201,27 @@ def correlation_cf_plain(a: torch.Tensor, b: torch.Tensor,
 def correlation_cf_cuda(a: torch.Tensor, b: torch.Tensor,
                         max_displacement: int, stride_2: int = 1
                         ) -> torch.Tensor:
-    """The kernel: a, b (N, H, W, C) f32, C % 8 == 0 -> (N, D^2, H, W)
-    f32."""
+    """The kernel: a, b (N, H, W, C) f32, C % 4 == 0 -> (N, D^2, H, W)
+    f32, for D <= 21 and any stride_2 whose haloed tiles fit the card's
+    227 KB of shared memory (r stride_2 up to 33 at D = 21)."""
     _cuda.check_cuda_tensor("a", a, torch.float32, 4)
     _cuda.check_cuda_tensor("b", b, torch.float32, 4)
     nb, h, w, c = a.shape
-    _, d = disp_grid(max_displacement, stride_2)
     if b.shape != a.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
     if a.device != b.device:
         raise ValueError("a and b must be on one device")
-    if c % 8:
-        raise ValueError(f"correlation kernel needs C % 8 == 0, got {c}")
-    if d > MAX_D or nb * d > 65535:
-        raise ValueError(f"{nb} maps x {d} displacement rows: the kernel "
-                         f"takes D <= {MAX_D} and N * D <= 65535")
-    smem = _cuda.load().dodt_correlation_cf_smem_bytes(max_displacement)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"max_displacement {max_displacement} needs "
-                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
-    out = torch.empty((nb, d * d, h, w), dtype=torch.float32,
+    if c % 4:
+        raise ValueError(f"correlation_cf kernel needs C % 4 == 0, got {c}")
+    if nb > 65535:
+        raise ValueError(f"correlation_cf kernel takes N <= 65535, got {nb}")
+    geo = cf_geometry(max_displacement, stride_2)
+    out = torch.empty((nb, geo.d * geo.d, h, w), dtype=torch.float32,
                       device=a.device)
     if out.numel():
         _CF_KERNEL(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(out), nb,
-                   h, w, c, max_displacement, stride_2)
+                   h, w, c, max_displacement, stride_2, geo.dmax, geo.rows,
+                   geo.stages)
     return out
 
 
@@ -211,8 +249,9 @@ class _CorrelationCF(torch.autograd.Function):
 def correlation_cf(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
                    stride_2: int = 1) -> torch.Tensor:
     """Channel-first correlation volume: (..., H, W, C) pairs ->
-    (..., D^2, H, W), in the input dtype on the CPU and f32 on the
-    card."""
+    (..., D^2, H, W), in the input dtype on the CPU and f32 on the card
+    (bf16 or f16 maps are cast to f32 for the kernel, which sums in f32;
+    the gradient flows back through the cast)."""
     if a.shape != b.shape or a.dim() < 3:
         raise ValueError(f"correlation_cf: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} must be equal (..., H, W, C)")
@@ -222,7 +261,8 @@ def correlation_cf(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
     if a.device.type == "cpu":
         out = correlation_cf_plain(a4, b4, max_displacement, stride_2)
     elif a.device.type == "cuda":
-        out = _CorrelationCF.apply(a4.contiguous(), b4.contiguous(),
+        out = _CorrelationCF.apply(a4.to(torch.float32).contiguous(),
+                                   b4.to(torch.float32).contiguous(),
                                    max_displacement, stride_2)
     else:
         raise ValueError(f"correlation_cf: no kernel for device {a.device}")

@@ -24,7 +24,18 @@ never materialises the matmul form's (N, S, W, C) intermediate.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_grid(s: int, device: torch.device) -> torch.Tensor:
+    """k / (s - 1) for k < s in f32, divided on the CPU and kept per
+    device. A CUDA tensor divided by a Python number is multiplied by the
+    number's rounded reciprocal, one ulp off the quotient for some k
+    (s = 7 among them); XLA, the CPU and kernel B2 compute the quotient."""
+    return (torch.arange(s, dtype=torch.float32) / (s - 1)).to(device)
 
 
 def sample_grid(boxes_norm: torch.Tensor, dim_px: int, lo: torch.Tensor,
@@ -32,8 +43,7 @@ def sample_grid(boxes_norm: torch.Tensor, dim_px: int, lo: torch.Tensor,
     """Pixel sample coordinates along one axis, (N, S), clamped."""
     s = crop_size
     if s > 1:
-        grid = torch.arange(s, dtype=torch.float32,
-                            device=boxes_norm.device) / (s - 1)
+        grid = _unit_grid(s, boxes_norm.device)
         t = lo[:, None] + (hi - lo)[:, None] * grid
     else:
         t = ((lo + hi) / 2.0)[:, None]

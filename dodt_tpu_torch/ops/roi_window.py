@@ -7,12 +7,15 @@ static WIN x WIN window of the map. The window origin is floored to 8 px
 in y and to ``ax = 128 // gcd(C, 128)`` px in x (the TPU kernel's
 alignment), and window-relative sample coords are clamped to
 [0, WIN - 1]: exact against the gather path for ROIs spanning
-<= WIN - 10 px, edge-clamped beyond, exactly as on the TPU. f32 maps are
-cast to bf16 and the crops are bf16.
+<= WIN - 10 px, edge-clamped beyond, exactly as on the TPU. Every tap is
+the map's value rounded to bf16 (the JAX kernel casts f32 maps to bf16)
+and the crops are bf16.
 
-The CUDA kernel (``csrc/roi_window.cu``) samples the four taps of every
-output directly from the window in one launch for a batch of maps;
-``crop_and_resize_window_plain`` is its PyTorch twin. CPU tensors take
+The CUDA kernel (``csrc/roi_window.cu``) reads f32 or bf16 maps as they
+are, rounds each tap to bf16 in registers, and samples the four taps of
+every output directly from the window in one launch for a batch of
+maps; ``crop_and_resize_window_plain`` is its PyTorch twin (it casts
+the map to bf16 first, the same values). CPU tensors take
 the twin, CUDA tensors the kernel, anything else raises. The kernel is
 eval-only, as in the JAX package (roi_pallas.py has no VJP): the CUDA
 route raises when a gradient is required.
@@ -28,8 +31,10 @@ from dodt_tpu_torch.ops import _cuda
 from dodt_tpu_torch.ops.roi import sample_grid
 
 _KERNEL = _cuda.CudaKernel("dodt_roi_window", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8)
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10)
 MAX_CROP = 32        # csrc/roi_window.cu MAX_S
+# the map dtypes the kernel reads: (its code in csrc/roi_window.cu, bytes)
+_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 2)}
 
 
 def _x_align(c: int) -> int:
@@ -114,20 +119,30 @@ def crop_and_resize_window_plain(images: torch.Tensor,
     return out.reshape(m, n, s, s, c)
 
 
+def vector_width(dtype: torch.dtype, c: int, data_ptr: int) -> int:
+    """Channels per load of the kernel: a 16-byte vector (4 f32 or 8 bf16
+    channels) where C is a multiple of it and the map 16-byte aligned,
+    else 1 (the scalar instance, any C)."""
+    vec = 16 // _DTYPES[dtype][1]
+    return vec if c % vec == 0 and data_ptr % 16 == 0 else 1
+
+
 def crop_and_resize_window_cuda(images: torch.Tensor,
                                 boxes_norm: torch.Tensor, crop_size: int,
                                 window: int = 64) -> torch.Tensor:
-    """The kernel: images (M, H, W, C) bf16, boxes (M, N, 4) f32 ->
-    (M, N, S, S, C) bf16."""
-    _cuda.check_cuda_tensor("images", images, torch.bfloat16, 4, align=2)
-    _cuda.check_cuda_tensor("boxes", boxes_norm, torch.float32, 3, align=4)
+    """The kernel: images (M, H, W, C) f32 or bf16, read in their own
+    dtype; boxes (M, N, 4) -> (M, N, S, S, C) bf16."""
+    images = images.contiguous()
+    boxes_norm = boxes_norm.to(torch.float32).contiguous()
     m, h, w, c = images.shape
     n = boxes_norm.shape[1]
-    if boxes_norm.shape != (m, n, 4):
-        raise ValueError(f"boxes {tuple(boxes_norm.shape)} do not match "
-                         f"{m} maps")
-    if images.device != boxes_norm.device:
-        raise ValueError("images and boxes must be on one device")
+    if images.dtype not in _DTYPES or images.device.type != "cuda":
+        raise ValueError(f"images: expected an f32 or bf16 CUDA tensor, got "
+                         f"{images.dtype} on {images.device}")
+    if boxes_norm.shape != (m, n, 4) or boxes_norm.device != images.device:
+        raise ValueError(f"boxes {tuple(boxes_norm.shape)} on "
+                         f"{boxes_norm.device} do not match {m} maps on "
+                         f"{images.device}")
     if not 0 < crop_size <= MAX_CROP:
         raise ValueError(f"crop_size must be in [1, {MAX_CROP}]")
     ax = _check_geometry(h, w, c, crop_size, window)
@@ -135,7 +150,9 @@ def crop_and_resize_window_cuda(images: torch.Tensor,
                       device=images.device)
     if n:
         _KERNEL(images.device, _cuda.ptr(images), _cuda.ptr(boxes_norm),
-                _cuda.ptr(out), m, h, w, c, n, crop_size, window, ax)
+                _cuda.ptr(out), m, h, w, c, n, crop_size, window, ax,
+                _DTYPES[images.dtype][0],
+                vector_width(images.dtype, c, images.data_ptr()))
     return out
 
 
@@ -160,6 +177,4 @@ def crop_and_resize_window(images: torch.Tensor, boxes_norm: torch.Tensor,
         # crops take the gather form (bev_crop_fn)
         raise RuntimeError("crop_and_resize_window has no gradient; "
                            "use the gather crop (ops/roi.py) in training")
-    return crop_and_resize_window_cuda(
-        images.to(torch.bfloat16).contiguous(),
-        boxes_norm.to(torch.float32).contiguous(), crop_size, window)
+    return crop_and_resize_window_cuda(images, boxes_norm, crop_size, window)

@@ -1,0 +1,86 @@
+"""Device time of the full-width streaming keyframe, from a torch.profiler
+trace: the union of the card's kernel, memcpy and memset intervals over
+N_TRACED keyframes (static arm, after warm-up), per keyframe, with the
+count of device operations, beside the unprofiled wall time of the same
+keyframes. It runs the port of the tree in the working directory, so
+that two trees compare in one call, from each tree's root:
+
+    python3 probes/keyframe_trace.py
+    (cd build/parent && python3 ../../probes/keyframe_trace.py)
+
+Prints one JSON line; the chrome trace goes to chiprun_out/ when that
+directory exists."""
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.getcwd())
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+N_WARM, N_TRACED = 5, 10
+
+
+def busy_ms(events):
+    """Length of the union of [ts, ts + dur] over events, in ms."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("keyframe_trace: no CUDA card", file=sys.stderr)
+        return 1
+    from dodt_tpu_torch.runtime.predictor import StreamingPredictor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg, model, batch = chip_smoke.full_width(dev)
+    frames = chip_smoke.frames_of(batch)
+    pred = StreamingPredictor(model)
+    pred.push_keyframe(frames[0], fetch=False)
+    for i in range(N_WARM):
+        pred.push_keyframe(frames[(i + 1) % 2], fetch=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(N_TRACED):
+        pred.push_keyframe(frames[i % 2], fetch=False)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / N_TRACED * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(N_TRACED):
+            pred.push_keyframe(frames[i % 2], fetch=False)
+        torch.cuda.synchronize()
+    out_dir = "chiprun_out" if os.path.isdir("chiprun_out") else \
+        os.environ.get("TMPDIR", "/tmp")
+    path = os.path.join(out_dir, f"keyframe_trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev_ev = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    by_name = {}
+    for e in dev_ev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({
+        "tree": os.getcwd(), "keyframes": N_TRACED,
+        "device_busy_ms_per_keyframe": busy_ms(dev_ev) / N_TRACED,
+        "device_ops_per_keyframe": len(dev_ev) / N_TRACED,
+        "wall_ms_per_keyframe_unprofiled": wall,
+        "top_device_ms_per_keyframe": {k: v / N_TRACED for k, v in top},
+        "card": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -60,6 +60,100 @@ def test_roi_window_kernel_matches_twin(dev):
     assert (got - want).abs().max() <= 1e-2 * want.abs().max()
 
 
+def _car_boxes(g, m, n):
+    """(m, n, 4) car-sized normalised BEV boxes (80 m x 70 m map), the
+    first tenth of them six times too large (the window clamps them)."""
+    cy, cx = (torch.rand((m, n), generator=g) * 0.9 + 0.05 for _ in range(2))
+    hy = (torch.rand((m, n), generator=g) * 2.5 + 1.0) / 70.0
+    hx = (torch.rand((m, n), generator=g) * 2.5 + 1.0) / 80.0
+    hy[:, :n // 10] *= 6.0
+    hx[:, :n // 10] *= 6.0
+    return torch.stack([cy - hy, cx - hx, cy + hy, cx + hx], -1)
+
+
+# the bottom rows of a 150-row map lie in no window (C6), oversized ROIs
+BOTTOM = [[0.9, 0.2, 1.0, 0.3], [0.97, 0.5, 1.0, 0.6], [0.0, 0.0, 1.0, 1.0],
+          [0.2, 0.1, 0.9, 0.95]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,n,s", [
+    ((2, 350, 400, 32), 300, 7),     # the main path
+    ((2, 96, 128, 4), 8, 7),         # C = 4: bf16 takes the scalar loads
+    ((2, 96, 128, 16), 8, 7),        # C = 16
+    ((2, 96, 128, 32), 1, 7),        # N = 1
+    ((2, 96, 128, 32), 7, 7),        # N = 7
+    ((2, 96, 128, 32), 8, 1),        # S = 1: the box centre
+    ((2, 150, 128, 32), 4, 7),       # C6 bottom rows and oversized ROIs
+])
+def test_roi_window_kernel_matches_twin_on_both_dtypes(dev, shape, n, s,
+                                                       dtype):
+    """B2 reads the map in its own dtype and rounds each tap to bf16, the
+    value the twin reads after casting the map: one launch, equal to the
+    twin (the check allows 1e-2 of the range)."""
+    g = torch.Generator().manual_seed(14)
+    maps = torch.randn(shape, generator=g).to(dev, getattr(torch, dtype))
+    boxes = (_car_boxes(g, shape[0], n) if shape[1] == 350 else
+             torch.tensor([BOXES[:n] if n <= len(BOXES) else BOXES] * 2)
+             if shape[1] == 96 else torch.tensor([BOTTOM, BOTTOM[::-1]]))
+    boxes = boxes[:, :n].to(dev)
+    before = twin._KERNEL.launches
+    got = twin.crop_and_resize_window(maps, boxes, s)
+    assert twin._KERNEL.launches == before + 1
+    want = twin.crop_and_resize_window_plain(maps, boxes, s)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (
+        shape[0], n, s, s, shape[3])
+    assert (got.float() - want.float()).abs().max() <= \
+        1e-2 * want.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_roi_window_kernel_reads_a_misaligned_f32_map(dev):
+    """An f32 map 4 bytes off a 16-byte boundary takes the scalar loads,
+    with the same result as the aligned map."""
+    g = torch.Generator().manual_seed(15)
+    flat = torch.randn(2 * 96 * 128 * 32 + 1, generator=g).to(dev)
+    maps = flat[1:].view(2, 96, 128, 32)
+    assert maps.data_ptr() % 16 and twin.vector_width(
+        maps.dtype, 32, maps.data_ptr()) == 1
+    boxes = torch.tensor([BOXES, BOXES[::-1]], device=dev)
+    got = twin.crop_and_resize_window(maps, boxes, 7)
+    assert torch.equal(got, twin.crop_and_resize_window(maps.clone(),
+                                                        boxes, 7))
+    want = twin.crop_and_resize_window_plain(maps, boxes, 7).float()
+    assert (got.float() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,md,s2,dtype", [
+    ((1, 350, 400, 32), 5, 1, "float32"),    # the main path, D = 11
+    ((2, 61, 77, 32), 10, 2, "float32"),     # D = 11 at stride 2, odd map
+    ((1, 45, 67, 16), 10, 1, "float32"),     # D = 21
+    ((3, 40, 72, 8), 5, 1, "float32"),       # N = 3, C = 8
+    ((1, 33, 51, 16), 5, 1, "float32"),      # C = 16, odd map
+    ((1, 33, 50, 64), 5, 1, "float32"),      # C = 64
+    ((2, 64, 96, 32), 5, 2, "float32"),      # D = 5 at stride 2
+    ((1, 30, 41, 16), 7, 3, "float32"),      # stride 3: run-time strips
+    ((1, 70, 90, 8), 30, 3, "float32"),      # D = 21, a two-stage ring
+    ((2, 47, 81, 32), 5, 1, "bfloat16"),     # bf16 inputs
+])
+def test_correlation_kernel_matches_twin_at_every_shape(dev, shape, md, s2,
+                                                        dtype):
+    """B4 (one launch) against the twin on the inputs' f32 values: f32
+    sums of C products in another order, 1e-5. bf16 inputs give an f32
+    volume."""
+    g = torch.Generator().manual_seed(16)
+    a, b = (torch.randn(shape, generator=g).to(dev, getattr(torch, dtype))
+            for _ in range(2))
+    before = tcorr._CF_KERNEL.launches
+    got = tcorr.correlation_cf(a, b, md, s2)
+    assert tcorr._CF_KERNEL.launches == before + 1
+    want = tcorr.correlation_cf_plain(a.float(), b.float(), md, s2)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_corr_bottleneck_kernel_matches_twin(dev):
     """f32 sums in another order: 1e-5."""

@@ -95,6 +95,7 @@ def _window_boxes():
                      [0.5, 0.5, 0.85, 0.82]], np.float32)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("h,c,boxes", [
     (96, 32, _window_boxes()),
     # oversized ROIs clamp to the window edge, identically in both
@@ -104,18 +105,19 @@ def _window_boxes():
     (150, 32, np.array([[0.9, 0.2, 1.0, 0.3], [0.97, 0.5, 1.0, 0.6]],
                        np.float32)),
 ])
-def test_roi_window_twin_matches_pallas_interpret(h, c, boxes):
-    """Both read bf16 maps and return bf16; the TPU kernel rounds its
-    hat weights and row-reduced partials to bf16 too, so they agree to
-    a few bf16 roundings (2e-2 of the map range)."""
+def test_roi_window_twin_matches_pallas_interpret(h, c, boxes, dtype):
+    """Both read the map in its dtype and return bf16: f32 maps (the
+    main path's) each casts to bf16 itself. The TPU kernel rounds its hat
+    weights and row-reduced partials to bf16 too, so they agree to a few
+    bf16 roundings (2e-2 of the map range)."""
     rng = np.random.RandomState(11)
     img = rng.rand(h, 128, c).astype(np.float32)
     want = np.asarray(roi_pallas.crop_and_resize_window(
-        jnp.asarray(img, jnp.bfloat16), jnp.asarray(boxes), 7, window=64,
-        interpret=True), np.float32)
+        jnp.asarray(img, getattr(jnp, dtype)), jnp.asarray(boxes), 7,
+        window=64, interpret=True), np.float32)
     got = twin.crop_and_resize_window(
-        torch.from_numpy(img).to(torch.bfloat16), torch.from_numpy(boxes), 7,
-        window=64)
+        torch.from_numpy(img).to(getattr(torch, dtype)),
+        torch.from_numpy(boxes), 7, window=64)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=0)
 
@@ -207,6 +209,30 @@ def test_correlation_twin_matches_jax(shape, md, s2):
     np.testing.assert_allclose(got_cf, xla_cf, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got, oracle, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,md,s2", [
+    ((20, 24, 8), 5, 1),       # the model's displacement range
+    ((2, 10, 13, 16), 4, 2),   # batched, stride_2 = 2
+])
+def test_correlation_twin_bf16_matches_jax(shape, md, s2):
+    """bf16 maps: the twin and the JAX op (correlation_cf, XLA) both
+    return bf16, each rounding the products, the channel sum and the
+    1/C at its own places: within 1e-2 of the range (two or three bf16
+    roundings at its top)."""
+    rng = np.random.RandomState(12)
+    a = rng.randn(*shape).astype(np.float32)
+    b = rng.randn(*shape).astype(np.float32)
+    want = jcorr.correlation_cf(jnp.asarray(a, jnp.bfloat16),
+                                jnp.asarray(b, jnp.bfloat16), md, s2,
+                                use_pallas=False)
+    got = tcorr.correlation_cf(torch.from_numpy(a).to(torch.bfloat16),
+                               torch.from_numpy(b).to(torch.bfloat16), md, s2)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=1e-2 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("md,s2", [(2, 1), (4, 2)])
@@ -369,3 +395,94 @@ def test_conv_chain_pack_is_cached_until_a_parameter_changes():
     third = tcc._packed(w, b)
     assert third[1] is not second[1]
     assert torch.equal(third[1], b.detach()) and third[1].dtype == torch.float32
+
+
+# ---------------------------------------------------------------- helpers
+
+@pytest.mark.parametrize("dtype,c,ptr,vec", [
+    (torch.float32, 32, 0, 4),        # the main path: a float4 of channels
+    (torch.bfloat16, 32, 256, 8),     # 8 bf16 channels in 16 bytes
+    (torch.float32, 12, 16, 4),
+    (torch.bfloat16, 12, 16, 1),      # C % 8: the scalar instance
+    (torch.bfloat16, 4, 0, 1),
+    (torch.float32, 32, 4, 1),        # a map 4 bytes off 16: scalar loads
+])
+def test_roi_window_vector_width(dtype, c, ptr, vec):
+    """B2 reads 16 bytes a load where C is a multiple of the vector and
+    the map is 16-byte aligned, else one channel a load."""
+    assert twin.vector_width(dtype, c, ptr) == vec
+
+
+def test_roi_window_takes_f32_and_bf16_maps_only():
+    """The kernel's dtype codes: the map is read in its own dtype, f32 or
+    bf16 (csrc/roi_window.cu dtype 0 and 1); others have no instance."""
+    assert twin._DTYPES == {torch.float32: (0, 4), torch.bfloat16: (1, 2)}
+    with pytest.raises(KeyError):
+        twin.vector_width(torch.float16, 32, 0)
+
+
+def test_sample_grid_lattice_is_the_true_quotient():
+    """The unit lattice k / (s - 1) is the correctly rounded quotient (as
+    numpy, XLA and kernel B2 compute it), kept per device: on a card a
+    tensor divided by a Python number is multiplied by the reciprocal,
+    one ulp off for s = 7."""
+    from dodt_tpu_torch.ops import roi
+    for s in range(2, 33):
+        want = np.arange(s, dtype=np.float32) / np.float32(s - 1)
+        got = roi._unit_grid(s, torch.device("cpu"))
+        assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    assert roi._unit_grid(7, torch.device("cpu")) is roi._unit_grid(
+        7, torch.device("cpu"))
+    boxes = torch.tensor([[0.1, 0.2, 0.4, 0.55]])
+    ys = roi.sample_grid(boxes, 350, boxes[:, 0], boxes[:, 2], 7)
+    g = np.arange(7, dtype=np.float32) / np.float32(6)
+    t = np.float32(0.1) + (np.float32(0.4) - np.float32(0.1)) * g
+    np.testing.assert_array_equal(
+        ys[0].numpy(), np.clip(t * np.float32(350) - np.float32(0.5), 0, 349))
+
+
+def test_correlation_cf_geometry_at_the_main_shape():
+    """B4 at (1, 350, 400, 32), D = 11: the D = 11 instance, 5 rows of a
+    column per thread (55 accumulators), a four-stage ring of 50.6 KB,
+    and A and B read from L2 2.6 times the input (each 5 x 32 tile's
+    staged slices once), not D times."""
+    geo = tcorr.cf_geometry(5, 1)
+    assert geo == tcorr.CfGeometry(d=11, dmax=11, rows=5, stages=4,
+                                   smem=4 * (15 * 42 + 5 * 32) * 16)
+    blocks = -(-400 // tcorr.CF_COLS) * -(-350 // geo.rows)
+    l2_bytes = blocks * geo.smem // geo.stages * (32 // 4)
+    assert l2_bytes <= 2.6 * 2 * 350 * 400 * 32 * 4
+
+
+@pytest.mark.parametrize("s2", [1, 2, 3, 5])
+def test_correlation_cf_geometry_everywhere(s2):
+    """Every D <= 21 at this stride_2: the smallest bucket that holds D,
+    at most 55 accumulators a thread, and a ring that fits 227 KB (four
+    stages, or two where four do not fit) or a ValueError before
+    launch."""
+    for md in range(0, 11 * s2):
+        _check_cf_geometry(md, s2)
+
+
+def _check_cf_geometry(md, s2):
+    _, d = tcorr.disp_grid(md, s2)
+    try:
+        geo = tcorr.cf_geometry(md, s2)
+    except ValueError:
+        span = (d - 1) * s2
+        assert 2 * ((2 + span) * (32 + span) + 64) * 16 > tcorr.CF_MAX_SMEM
+        return
+    assert geo.d == d <= geo.dmax
+    assert (geo.dmax, geo.rows) in tcorr.CF_TILINGS
+    assert d > max([t[0] for t in tcorr.CF_TILINGS if t[0] < geo.dmax],
+                   default=0)
+    assert geo.rows * geo.dmax <= 55 and geo.smem <= tcorr.CF_MAX_SMEM
+    span = (d - 1) * s2
+    stage = ((geo.rows + span) * (32 + span) + geo.rows * 32) * 16
+    assert geo.smem == geo.stages * stage
+    assert geo.stages == (4 if 4 * stage <= tcorr.CF_MAX_SMEM else 2)
+
+
+def test_correlation_cf_geometry_rejects_d_past_21():
+    with pytest.raises(ValueError, match="D <= 21"):
+        tcorr.cf_geometry(11, 1)
