@@ -39,6 +39,18 @@ and its reason on stdout and stderr, and prints no result:
      memory;
   8. one train step of the small config on the card and on the CPU with
      the same weights and draws (dropout off): losses and every gradient
+     compared;
+  9. evaluate phase 7's checkpoint at full width through
+     Evaluator.run_checkpoint_once (cars_dt_tracking(data_stride=3),
+     val_health on) on a synthetic fixture of two videos (static and ego
+     motion, 10 frames, 4 cars; no PNGs, the images are the fixture's
+     flat gray cards), twice: B1-B3 launched per forward, B4 not, the
+     native AP route equal to the Python route, every result key and
+     finite number, a prediction file for every frame and couple; prints
+     eval couples/s and the time of each stage;
+ 10. run_checkpoint_once of the small config (f32 towers, plain convs)
+     on one ego-motion video at data_stride 3 on the card and on the CPU,
+     from one checkpoint: the per-frame boxes and the AP and MOT results
      compared.
 
 Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
@@ -69,8 +81,9 @@ card is a full f32 op and the comparisons measure the kernels alone.
 The second-to-last line of stdout holds the card's name and power limit,
 the line before it one JSON object with each kernel's launches (on the
 path that runs it: B1-B3 the streaming slice, with the monolithic
-forward's and the train step's counts beside it; B4 its public ops),
-error and times; the last line is {"ok": true, "device": {...}}.
+forward's, the train step's and the evaluation's counts beside it,
+``evaluate`` per evaluated couple; B4 its public ops), error and times;
+the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -793,7 +806,7 @@ def cuda_vs_cpu(dev):
             prev = {k: v.to(d) for k, v in st_g.items()}
             cur = {k: v.to(d) for k, v in st1_g.items()}
             if ego is not None:
-                cur = StreamingPredictor(model).warp_state(
+                cur = StreamingPredictor(model, device=d).warp_state(
                     cur, *(torch.as_tensor(v, device=d) for v in ego))
             outs[name] = model.pair_stage(prev, cur)
         og, oc = outs["cuda"], outs["cpu"]
@@ -1034,7 +1047,8 @@ def full_width_training(dev, counters):
     proposal off its anchor, so the second stage would see no positive.
     One step's gradients are checked first (finite everywhere, non-zero
     for B3's weights); then the counters are zeroed and the Trainer runs
-    TRAIN_STEPS steps. Returns (median step ms, peak MiB, launches)."""
+    TRAIN_STEPS steps. Returns (median step ms, peak MiB, launches, the
+    checkpoint directory, which phase 9 evaluates and then removes)."""
     import shutil
     import torch
     from dodt_tpu_torch.config import cars_dt_tracking
@@ -1105,8 +1119,7 @@ def full_width_training(dev, counters):
     b1, b2, b3 = (launches[c.symbol] for c in counters)
     check(b3 > 0, "corr_bottleneck (B3) was not launched by training")
     check(b1 == 0 and b2 == 0, "an eval-only kernel (B1/B2) ran in training")
-    shutil.rmtree(ckpt, ignore_errors=True)
-    return med, peak, launches
+    return med, peak, launches, ckpt
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1192,6 +1205,340 @@ def train_step_cuda_vs_cpu(dev):
             worst, worst_key = e / scale, k
     log(f"small train step: {len(gc)} gradients, worst max_abs_err / "
         f"max |ref| {worst:.4g} ({worst_key})")
+
+
+# ---------------------------------------------------------------- phase 9
+
+EVAL_SPEEDS = (0.0, 0.5)       # a static video and an ego-motion video
+EVAL_FRAMES = 10
+RESULT_KEYS = {"step", "ap", "ap_per_class", "ap_05_per_class", "mot",
+               "val_health"}
+
+
+def write_eval_fixture(root, speeds, n_frames):
+    """The lidar, calib, label, oxts, plane and split files that the
+    port's write_tracking_fixture writes for videos of these ego speeds
+    (4 cars each, seed 0), from the same SyntheticScene, without the
+    PNGs: the card's machine has no cv2. Returns the scenes by video."""
+    from dodt_tpu_torch.data import synthetic
+    base = os.path.join(root, "training")
+    for sub in ("calib", "label_02", "oxts"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    scenes, groups = {}, []
+    for vid, speed in enumerate(speeds):
+        scene = scenes[vid] = synthetic.SyntheticScene(vid, n_frames,
+                                                       ego_speed=speed)
+        vdir, pdir = (os.path.join(base, sub, f"{vid:04d}")
+                      for sub in ("velodyne", "planes"))
+        os.makedirs(vdir, exist_ok=True)
+        os.makedirs(pdir, exist_ok=True)
+        for frame in range(n_frames):
+            scene.point_cloud_at(frame).tofile(
+                os.path.join(vdir, f"{frame:06d}.bin"))
+            with open(os.path.join(pdir, f"{frame:06d}.txt"), "w") as f:
+                f.write("# Plane\nWidth 4\nHeight 1\n"
+                        f"0.0 -1.0 0.0 {synthetic.GROUND_Y}\n")
+        groups.append("\n".join(f"{vid:04d}/{frame:06d}"
+                                for frame in range(n_frames)))
+        for sub, text in (("calib", synthetic._calib_text()),
+                          ("label_02", "\n".join(scene.label_lines()) + "\n"),
+                          ("oxts", "\n".join(scene.oxts_lines()) + "\n")):
+            with open(os.path.join(base, sub, f"{vid:04d}.txt"), "w") as f:
+                f.write(text)
+    for split in ("train", "val", "trainval", "test"):
+        with open(os.path.join(root, split + ".txt"), "w") as f:
+            f.write("\n\n".join(groups) + "\n")
+    return scenes
+
+
+def eval_dataset(cfg, scenes):
+    """The port's KittiTrackingDataset (val split) over write_eval_fixture's
+    files, its camera images the scenes' flat gray cards resized with
+    numpy: a constant image resizes exactly, so the samples are the ones
+    cv2 would give from the PNGs."""
+    from dodt_tpu_torch.data.tracking import KittiTrackingDataset
+
+    class CardImages(KittiTrackingDataset):
+        def _camera_image(self, video_id, frame):
+            img = scenes[video_id].image_at(frame)
+            check(bool((img == img[0, 0]).all()),
+                  "the fixture's camera image is not constant")
+            ih, iw = self.cfg.image_shape
+            return img.shape[:2], np.broadcast_to(img[0, 0],
+                                                  (ih, iw, 3)).copy()
+    return CardImages(cfg.dataset, split="val")
+
+
+def eval_cfg(cfg, root):
+    """An evaluation config over the fixture at root: every video is a
+    val video, and random weights' scores (about 0.5) start and keep
+    tracks, so the MOT scorer sees the boxes."""
+    cfg.dataset.dataset_dir = root
+    cfg.dataset.video_train_ids = ()
+    cfg.eval.track_lth = cfg.eval.track_hth = 0.0
+    cfg.eval.track_tmin = 1
+    return cfg
+
+
+def numbers(tree, path="results"):
+    """Every (path, number) leaf of a results tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from numbers(v, f"{path}/{k}")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, tree
+
+
+def check_eval_outputs(results, out_dir, ds, keys):
+    """results_{step}.json holds every key the JAX evaluator writes
+    (``keys``), a MOT entry per video and 'overall', and only finite
+    numbers, but for MOTP where there is no true positive: the official
+    protocol sets it to infinity then (tracking/mot_eval.py); there is a
+    prediction file for every frame of every video (the MoI frames
+    between keyframes included) and a couple file for every couple.
+    Returns (frame files, couple files)."""
+    step = results["step"]
+    with open(os.path.join(out_dir, f"results_{step}.json")) as f:
+        disk = json.load(f)
+    check(set(disk) == keys, f"results keys {sorted(disk)}")
+    vids = sorted({cp.video_id for cp in ds.couples})
+    check(set(disk["mot"]) == {str(v) for v in vids} | {"overall"},
+          f"MOT entries {sorted(disk['mot'])}")
+    def no_tp_motp(path, v):
+        parts = path.split("/")
+        return (parts[1] == "mot" and parts[-1] == "MOTP" and v == np.inf
+                and disk["mot"][parts[2]]["TP"] == 0)
+    bad = [(p, v) for p, v in numbers(disk)
+           if not np.isfinite(v) and not no_tp_motp(p, v)]
+    check(not bad, f"results numbers not finite: {bad}")
+    pred = os.path.join(out_dir, f"predictions_{step}")
+    frames = sorted(os.listdir(os.path.join(pred, "data")))
+    want = sorted({f"{cp.video_id:02d}{f:04d}.txt" for cp in ds.couples
+                   for f in range(cp.frame_a, cp.frame_b + 1)})
+    check(frames == want, f"frame files {frames} against {want}")
+    couples = sorted(os.listdir(os.path.join(pred, "couples")))
+    check(couples == sorted(f"{cp.name}.txt" for cp in ds.couples),
+          f"couple files {couples}")
+    return frames, couples
+
+
+def full_width_eval(dev, counters, ckpt):
+    """run_checkpoint_once on phase 7's checkpoint at full width
+    (cars_dt_tracking(data_stride=3), 65536 points) through
+    Evaluator(...) with its default device, over write_eval_fixture's two
+    videos of EVAL_FRAMES frames (4 val couples each), val_health on.
+
+    Two runs: the first, cold, also scores AP on the Python route beside
+    the native one on the same detections; the second is timed. In each,
+    the kernels' counters are zeroed just before: B1, B2 and B3 grow by
+    their per-pair-forward counts (6, 1, 1) times the forwards, B4 stays
+    0, and val_health's train-mode forwards add one B3 launch each and
+    nothing else. Returns the timed run's numbers."""
+    import shutil
+    import torch
+    from dodt_tpu_torch import native
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.eval import kitti_ap
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet
+    from dodt_tpu_torch.ops import correlation
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+
+    work = os.path.join(ROOT, "build", "smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    scenes = write_eval_fixture(os.path.join(work, "kitti"), EVAL_SPEEDS,
+                                EVAL_FRAMES)
+    cfg = eval_cfg(cars_dt_tracking(data_stride=3),
+                   os.path.join(work, "kitti"))
+    cfg.dataset.max_points = 65536
+    cfg.eval.val_health = True
+    ds = eval_dataset(cfg, scenes)
+    n = len(ds.couples)
+    bsz = max(cfg.eval.batch_size, 1)
+    n_fwd = -(-n // bsz)
+    ev = Evaluator(cfg, DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS), ds, ckpt,
+                   os.path.join(work, "out"))
+    check(ev.device.type == "cuda" and
+          next(ev.model.parameters()).device.type == "cuda",
+          f"the evaluator's default device is {ev.device}")
+    check(native.available(), "the native AP library did not build")
+    everyone = [*counters, correlation._CF_KERNEL]
+    b4 = correlation._CF_KERNEL.symbol
+    # B1 (3 convs x 2 towers), B2, B3 per pair forward (PERF.md table)
+    per_fwd = dict(zip((c.symbol for c in counters), (6, 1, 1)))
+    before_vh = {}
+    val_health = ev.val_health
+
+    def counted_val_health(*args, **kw):
+        before_vh.update({c.symbol: c.launches for c in everyone})
+        return val_health(*args, **kw)
+    ev.val_health = counted_val_health
+
+    # AP on both routes on the first run's detections
+    ap_pairs = []
+    evaluate_ap = kitti_ap.evaluate_ap
+
+    def both_routes(gts, dets, *args, **kw):
+        got = evaluate_ap(gts, dets, *args, **kw)
+        route = native.route()
+        ap_pairs.append((got, evaluate_ap(gts, dets, *args,
+                                          use_native=False)))
+        native.note_route(route)
+        return got
+
+    runs = []
+    try:
+        for run in ("cold", "timed"):
+            kitti_ap.evaluate_ap = both_routes if run == "cold" \
+                else evaluate_ap
+            for c in everyone:
+                c.launches = 0
+            ev.stage_seconds.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = ev.run_checkpoint_once()
+            wall = time.perf_counter() - t0
+            launches = {c.symbol: c.launches for c in everyone}
+            fwd = before_vh
+            vh = {k: launches[k] - fwd[k] for k in launches}
+            log(f"evaluate ({run}): {n} couples in {wall:.3f} s, stages "
+                f"{dict(ev.stage_seconds)}, launches in the forwards {fwd}, "
+                f"in val_health {vh}, AP route {native.route()}")
+            for sym, k in per_fwd.items():
+                check(fwd[sym] == k * n_fwd,
+                      f"{sym}: {fwd[sym]} launches in {n_fwd} forwards")
+            check(fwd[b4] == 0 and launches[b4] == 0,
+                  "B4 ran in the evaluation")
+            check(vh == {**dict.fromkeys(launches, 0),
+                         correlation._KERNEL.symbol: n_fwd},
+                  f"val_health launched {vh}")
+            check(native.route() == "native",
+                  f"AP took the {native.route()} route")
+            runs.append((wall, dict(ev.stage_seconds), launches, fwd))
+    finally:
+        kitti_ap.evaluate_ap = evaluate_ap
+    worst = max(abs(a[k] - b[k]) for a, b in ap_pairs for k in a)
+    log(f"AP native vs Python route over {len(ap_pairs)} calls: max abs "
+        f"difference {worst:.3g} AP points")
+    check(worst <= 1e-9, f"the AP routes disagree by {worst}")
+    frames, couples = check_eval_outputs(results, os.path.join(work, "out"),
+                                         ds, RESULT_KEYS)
+    mot = results["mot"]["overall"]
+    log(f"evaluate: step {results['step']}, {len(frames)} frame files, "
+        f"{len(couples)} couple files, AP_3D {results['ap']['AP_3D']}, "
+        f"overall MOTA {mot['MOTA']:.4g} TP {mot['TP']} FP {mot['FP']} FN "
+        f"{mot['FN']}, val_health {results['val_health']}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    wall, stages, launches, fwd = runs[-1]
+    return {"couples": n, "forwards": n_fwd, "wall_s": wall,
+            "cold_wall_s": runs[0][0], "stages": stages,
+            "launches": launches, "forward_launches": fwd}
+
+
+# ---------------------------------------------------------------- phase 10
+
+def eval_cuda_vs_cpu(dev):
+    """run_checkpoint_once of the small config over one ego-motion video
+    of 7 frames at data_stride 3 (couples (0, 3), (3, 6), (6, 6); MoI and
+    recovery), on the card and with device="cpu", from one checkpoint
+    (init_params, seed 5).
+
+    Per frame file (MoI frames included), the card's and the CPU's boxes
+    are held to phase 6's rule: counts within max(2, 10%) and 80% of the
+    boxes matched within 0.1. A box is matched on (x, y, z, l, w, h,
+    cos ry, sin ry): the decode flips a heading near 0 by pi, so a
+    rounding can put it at +pi in one run and -pi in the other, the same
+    box. The towers run in f32 with plain convolutions (B1 takes bf16
+    only; phase 6 holds it against the CPU): with bf16 towers the random
+    weights' near-tied scores reorder under the card's and the CPU's
+    rounding (on an NVIDIA H100 only 8 of a frame's 11 final boxes
+    matched). AP and MOT are step functions of box overlap and score
+    order: a box moved by rounding can cross an IoU gate. So they must
+    be equal (1e-6) when every frame's boxes are all matched within 2e-3
+    (the files print 3 decimals) with equal counts, and are printed side
+    by side otherwise."""
+    import copy
+    import shutil
+    import torch
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+    from dodt_tpu_torch.runtime.trainer import (CheckpointIO,
+                                                create_train_state)
+
+    work = os.path.join(ROOT, "build", "smoke_eval_small")
+    shutil.rmtree(work, ignore_errors=True)
+    scenes = write_eval_fixture(os.path.join(work, "kitti"), (0.5,), 7)
+    cfg = eval_cfg(small_cfg(), os.path.join(work, "kitti"))
+    cfg.dataset.data_stride = 3
+    cfg.model.tower_dtype = "float32"
+    for ext in (cfg.model.bev_extractor, cfg.model.img_extractor):
+        ext.fused_interior = ()
+    clusters = ((3.9, 1.6, 1.52),)
+    model = DtAvodNet(cfg, clusters)
+    init_params(model, torch.Generator().manual_seed(5))
+    ckpt = os.path.join(work, "ckpt")
+    CheckpointIO(ckpt).save(1, create_train_state(cfg, model))
+    res, files = {}, {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        ev = Evaluator(cfg, copy.deepcopy(model), eval_dataset(cfg, scenes),
+                       ckpt, os.path.join(work, name), device=d)
+        res[name] = ev.run_checkpoint_once()
+        check(next(ev.model.parameters()).device.type == torch.device(
+            d).type, f"{name} evaluator ran on {ev.device}")
+        keys = RESULT_KEYS - {"val_health"}
+        frame_files, _ = check_eval_outputs(res[name],
+                                            os.path.join(work, name),
+                                            ev.dataset, keys)
+        files[name] = {
+            fn: np.array([[float(v) for v in ln.split()[8:15]] for ln in
+                          open(os.path.join(work, name, "predictions_1",
+                                            "data", fn)).read().splitlines()
+                          ]).reshape(-1, 7)
+            for fn in frame_files}
+    check(files["cuda"].keys() == files["cpu"].keys(), "frame files differ")
+
+    def boxes(rows):
+        # (x, y, z, l, w, h, cos ry, sin ry) of the files' h w l x y z ry
+        b = torch.as_tensor(rows)
+        return torch.cat([b[:, [3, 4, 5, 2, 1, 0]], torch.cos(b[:, 6:]),
+                          torch.sin(b[:, 6:])], 1)
+
+    exact, worst = True, (0.0, None)
+    for fn, want in files["cpu"].items():
+        got = files["cuda"][fn]
+        valid_g, valid_w = (torch.ones(len(x), dtype=torch.bool)
+                            for x in (got, want))
+        g, w = boxes(got), boxes(want)
+        frac = matched_fraction(g, w, valid_g, valid_w, 0.1)
+        log(f"evaluate card vs CPU {fn}: boxes cuda {len(got)} cpu "
+            f"{len(want)}, matched within 0.1 {frac:.3f}")
+        if len(got) and len(want):
+            d = (g[:, None] - w[None]).abs().amax(-1)
+            if float(d.amin(1).max()) >= worst[0]:
+                worst = (float(d.amin(1).max()), fn)
+            if frac < 1.0:
+                log("  unmatched card rows (h w l x y z ry), nearest CPU "
+                    "row: " + "; ".join(
+                        f"{got[i].tolist()} {want[int(d[i].argmin())]}"
+                        for i in range(len(got)) if d[i].min() > 0.1))
+        check(abs(len(got) - len(want)) <= max(2, len(want) // 10),
+              f"{fn}: box counts differ, cuda {len(got)} cpu {len(want)}")
+        check(frac >= 0.8, f"{fn}: card vs CPU boxes matched {frac}")
+        exact &= len(got) == len(want) and min(
+            matched_fraction(g, w, valid_g, valid_w, 2e-3),
+            matched_fraction(w, g, valid_w, valid_g, 2e-3)) == 1.0
+    cpu_numbers = dict(numbers(res["cpu"]))
+    pairs = [(p, v, cpu_numbers[p]) for p, v in numbers(res["cuda"])]
+    differ = [(p, a, b) for p, a, b in pairs if abs(a - b) > 1e-6]
+    log(f"evaluate card vs CPU: largest distance of a card box to its "
+        f"nearest CPU box {worst[0]:.4g} ({worst[1]}); every box matched "
+        f"within 2e-3: {exact}; "
+        f"{len(pairs)} AP and MOT numbers, differing: {differ}")
+    if exact:
+        check(not differ, f"AP/MOT differ on matched detections: {differ}")
+    shutil.rmtree(work, ignore_errors=True)
+    return exact
 
 
 # ---------------------------------------------------------------- main
@@ -1296,11 +1643,15 @@ def main():
         log("phase 5: full-width pair forward and B4's public op ran")
         forward_cuda_vs_cpu(dev)
         log("phase 6: CUDA pair forward agrees with the CPU forward")
-        step_ms, peak_mib, train_launches = full_width_training(dev,
-                                                               counters)
+        step_ms, peak_mib, train_launches, ckpt = full_width_training(
+            dev, counters)
         log("phase 7: full-width training ran through the Trainer")
         train_step_cuda_vs_cpu(dev)
         log("phase 8: CUDA train step agrees with the CPU train step")
+        ev = full_width_eval(dev, counters, ckpt)
+        log("phase 9: full-width evaluation of phase 7's checkpoint ran")
+        eval_exact = eval_cuda_vs_cpu(dev)
+        log("phase 10: CUDA evaluation agrees with the CPU evaluation")
     except PhaseError as exc:
         return fail(str(exc))
     except Exception as exc:                 # a build or launch error
@@ -1321,6 +1672,19 @@ def main():
           f"device memory {peak_mib:.0f} MiB on {card}")
     print(f"B3 backward ms: {kern['corr_bottleneck']['bwd_ms']:.4f}, forward "
           f"{kern['corr_bottleneck']['ms']:.4f} on {card}")
+    st = ev["stages"]
+    print(f"eval couples/s (full width, {ev['couples']} couples, "
+          f"run_checkpoint_once with val_health): "
+          f"{ev['couples'] / ev['wall_s']:.4f}; without val_health "
+          f"{ev['couples'] / (ev['wall_s'] - st['val_health']):.4f}; cold "
+          f"run {ev['couples'] / ev['cold_wall_s']:.4f} on {card}")
+    print("eval seconds: " + ", ".join(
+        f"{k} {st[k]:.4f}" for k in ("load", "forward", "write", "ap",
+                                     "tracking", "val_health"))
+          + f", other {ev['wall_s'] - sum(st.values()):.4f}, wall "
+          f"{ev['wall_s']:.4f} on {card}")
+    print(f"eval card vs CPU (small config): every box matched within "
+          f"2e-3, AP and MOT held equal: {eval_exact}")
     for line in kernel_lines(kern, card):
         print(line)
     # launches in each path's run, and per keyframe (pushes, the first of
@@ -1331,10 +1695,15 @@ def main():
         "pair_forward": fwd_launches[k.symbol],
         "per_pair_forward": fwd_launches[k.symbol] / fwd_calls,
         "train_step": train_launches[k.symbol],
-        "per_train_step": train_launches[k.symbol] / TRAIN_STEPS}
+        "per_train_step": train_launches[k.symbol] / TRAIN_STEPS,
+        "evaluate_run": ev["launches"][k.symbol],
+        "evaluate": ev["launches"][k.symbol] / ev["couples"],
+        "evaluate_forwards": ev["forward_launches"][k.symbol]}
         for k in counters}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
-        "correlation_op": op_launches}
+        "correlation_op": op_launches,
+        "evaluate": ev["launches"][correlation._CF_KERNEL.symbol]
+        / ev["couples"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(k.symbol, op_launches),

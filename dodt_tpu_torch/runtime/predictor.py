@@ -19,9 +19,11 @@ from dodt_tpu_torch.ops.warp import transform_anchors_xz, warp_bev_features
 
 
 class StreamingPredictor:
-    def __init__(self, model):
-        self.model = model
-        self.device = next(model.parameters()).device
+    def __init__(self, model, device="cuda"):
+        """Runs on ``device``, the card unless the caller asks for the
+        CPU, and moves the model there."""
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self.encode_times: List[float] = []
         self.pair_times: List[float] = []

@@ -365,18 +365,20 @@ class CheckpointIO:
 class Trainer:
     def __init__(self, cfg: PipelineConfig, model: torch.nn.Module,
                  dataset, ckpt_dir: str, batch_size: int = 1,
-                 metrics_path: Optional[str] = "auto"):
+                 metrics_path: Optional[str] = "auto", device="cuda"):
+        """Trains on ``device``, the card unless the caller asks for the
+        CPU, and moves the model there."""
         self.cfg = cfg
-        self.model = model
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
         self.dataset = dataset
         self.batch_size = batch_size
-        self.device = next(model.parameters()).device
         self.ckpt = CheckpointIO(ckpt_dir, cfg.train.max_checkpoints_to_keep)
         # window-averaged losses as JSONL next to the checkpoints
         if metrics_path == "auto":
             metrics_path = os.path.join(ckpt_dir, "train_metrics.jsonl")
         self.metrics = MetricsLogger(metrics_path)
-        self.step_fn = make_train_step(cfg, model)
+        self.step_fn = make_train_step(cfg, self.model)
         self._spare_batches: list = []  # prefetched across train() calls
 
     def draws(self, step: int) -> dt_avod.Rand:

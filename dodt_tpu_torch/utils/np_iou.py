@@ -1,15 +1,67 @@
-"""Numpy rotated BEV IoU for host-side evaluation (the port's copy of
-``rotated_iou_matrix`` and the helpers it calls from
-dodt_tpu/utils/np_iou.py): analytic convex-quad intersection,
-Sutherland-Hodgman clipping batched over box pairs.
+"""Numpy rotated/3D IoU for host-side tracking and evaluation.
+
+Analytic convex-quad intersection (same algorithm as ops/iou.py, numpy
+edition) — replaces the reference's PIL rasterization
+(wavedata evaluation.py:44-261) with exact geometry.
+
+The port's copy of dodt_tpu/utils/np_iou.py.
 """
 from __future__ import annotations
 
 import numpy as np
 
 
+def _rect_corners(box):
+    """box [x, z, l, w, ry] -> (4, 2) corners."""
+    x, z, l, w, ry = box
+    c, s = np.cos(ry), np.sin(ry)
+    xc = np.array([l, l, -l, -l]) / 2.0
+    zc = np.array([w, -w, -w, w]) / 2.0
+    return np.stack([c * xc + s * zc + x, -s * xc + c * zc + z], axis=1)
+
+
+def _poly_area(pts):
+    if len(pts) < 3:
+        return 0.0
+    x, z = pts[:, 0], pts[:, 1]
+    return 0.5 * abs(np.dot(x, np.roll(z, -1)) - np.dot(z, np.roll(x, -1)))
+
+
+def _clip_poly(poly, a, b):
+    """Sutherland-Hodgman clip of polygon by half-plane left of a->b."""
+    out = []
+    n = len(poly)
+    for i in range(n):
+        cur, nxt = poly[i], poly[(i + 1) % n]
+        d_cur = (b[0] - a[0]) * (cur[1] - a[1]) - \
+                (b[1] - a[1]) * (cur[0] - a[0])
+        d_nxt = (b[0] - a[0]) * (nxt[1] - a[1]) - \
+                (b[1] - a[1]) * (nxt[0] - a[0])
+        if d_cur >= 0:
+            out.append(cur)
+        if (d_cur > 0) != (d_nxt > 0) and (d_cur < 0 or d_nxt < 0):
+            t = d_cur / (d_cur - d_nxt)
+            out.append(cur + t * (nxt - cur))
+    return np.array(out) if out else np.zeros((0, 2))
+
+
+def rect_intersection_area(box_a, box_b) -> float:
+    pa = _rect_corners(box_a)
+    pb = _rect_corners(box_b)
+    # ensure CCW orientation of the clip rect
+    if _signed_area(pb) < 0:
+        pb = pb[::-1]
+    poly = pa
+    for i in range(4):
+        if len(poly) == 0:
+            return 0.0
+        poly = _clip_poly(poly, pb[i], pb[(i + 1) % 4])
+    return _poly_area(poly)
+
+
 def _rect_corners_batch(boxes):
-    """(M, 5) [x, z, l, w, ry] -> (M, 4, 2) corners."""
+    """(M, 5) [x, z, l, w, ry] -> (M, 4, 2) corners (same vertex order
+    as `_rect_corners`)."""
     x, z, l, w, ry = (boxes[:, i] for i in range(5))
     c, s = np.cos(ry), np.sin(ry)
     xc = np.array([1.0, 1.0, -1.0, -1.0]) / 2.0
@@ -25,7 +77,8 @@ def _clip_polys_batch(V, n, a, b):
     """Sutherland-Hodgman step for a BATCH of polygons against one
     half-plane each (left of a->b). V (M, K, 2) vertex buffers, n (M,)
     live vertex counts, a/b (M, 2). Returns (V', n') with K' = 2K slots
-    (each input vertex can emit itself + one intersection)."""
+    (each input vertex can emit itself + one intersection — the exact
+    emission rule of `_clip_poly`, vectorized)."""
     m, k, _ = V.shape
     idx = np.arange(k)
     live = idx[None, :] < n[:, None]                        # (M, K)
@@ -77,18 +130,15 @@ def _aabb_half_extents(boxes5):
     return hx, hz
 
 
-def _signed_areas_batch(pts):
-    """(M, V, 2) -> (M,) signed areas."""
-    x, z = pts[:, :, 0], pts[:, :, 1]
-    xn, zn = np.roll(x, -1, axis=1), np.roll(z, -1, axis=1)
-    return 0.5 * np.sum(x * zn - z * xn, axis=1)
-
-
 def rect_intersection_pairs(a5, b5) -> np.ndarray:
     """Pairwise exact rotated-rect intersection: a5 (P, 5) vs b5
-    (P, 5) -> (P,) areas (row i of a against row i of b), with an
-    exact AABB prescreen so the polygon clip only runs on pairs that
-    can overlap."""
+    (P, 5) -> (P,) areas (row i of a against row i of b).
+
+    Same clip semantics as the scalar `rect_intersection_area`,
+    vectorized over P, with an exact AABB prescreen (an axis-aligned
+    bounding-box miss implies zero intersection) so the polygon clip
+    only runs on geometrically plausible pairs — the host tracker's
+    track x detection products are mostly far apart."""
     a5 = np.atleast_2d(a5).astype(np.float64)
     b5 = np.atleast_2d(b5).astype(np.float64)
     p = len(a5)
@@ -113,9 +163,86 @@ def rect_intersection_pairs(a5, b5) -> np.ndarray:
     return out
 
 
+def rect_intersection_areas(box_a, boxes_b) -> np.ndarray:
+    """box_a (5,) against every row of boxes_b (M, 5) -> (M,)."""
+    boxes_b = np.atleast_2d(boxes_b)
+    a5 = np.broadcast_to(np.asarray(box_a, np.float64),
+                         (len(boxes_b), 5))
+    return rect_intersection_pairs(a5, boxes_b)
+
+
+def _signed_areas_batch(pts):
+    """(M, V, 2) -> (M,) signed areas."""
+    x, z = pts[:, :, 0], pts[:, :, 1]
+    xn, zn = np.roll(x, -1, axis=1), np.roll(z, -1, axis=1)
+    return 0.5 * np.sum(x * zn - z * xn, axis=1)
+
+
+def _signed_area(pts):
+    x, z = pts[:, 0], pts[:, 1]
+    return 0.5 * (np.dot(x, np.roll(z, -1)) - np.dot(z, np.roll(x, -1)))
+
+
+def rotated_iou(box_a, boxes_b) -> np.ndarray:
+    """box_a (5,) [x, z, l, w, ry] vs boxes_b (M, 5) -> (M,) IoU.
+
+    Batched exact clip (`rect_intersection_areas`) — the per-pair
+    Python polygon loop was the host tracker's bottleneck (~290 us a
+    pair; the reference's tracking-only rate is 76.9 fps, README:271)."""
+    boxes_b = np.atleast_2d(boxes_b)
+    inter = rect_intersection_areas(box_a, boxes_b)
+    union = box_a[2] * box_a[3] + boxes_b[:, 2] * boxes_b[:, 3] - inter
+    return np.where(union > 0, inter / union, 0.0)
+
+
+def three_d_iou(box_a, boxes_b) -> np.ndarray:
+    """box_3d (7,) [x, y, z, l, w, h, ry] vs (M, 7) -> (M,) 3D IoU.
+
+    Height overlap x rotated footprint (reference three_d_iou:44,
+    camera frame: box spans y in [y - h, y]); footprint intersection
+    via the batched exact clip."""
+    boxes_b = np.atleast_2d(boxes_b)
+    inter2d = rect_intersection_areas(box_a[[0, 2, 3, 4, 6]],
+                                      boxes_b[:, [0, 2, 3, 4, 6]])
+    h_ov = np.maximum(
+        0.0, np.minimum(box_a[1], boxes_b[:, 1]) -
+        np.maximum(box_a[1] - box_a[5], boxes_b[:, 1] - boxes_b[:, 5]))
+    inter = inter2d * h_ov
+    vol_a = box_a[3] * box_a[4] * box_a[5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
+    union = vol_a + vol_b - inter
+    return np.where(union > 0, inter / union, 0.0)
+
+
+def three_d_iou_matrix(boxes_a, boxes_b) -> np.ndarray:
+    """(T, 7) x (D, 7) -> (T, D) 3D IoU in ONE pairwise clip sweep.
+
+    The trackers need a full track x detection matrix every frame;
+    per-row calls pay numpy dispatch overhead T times on tiny
+    candidate sets, so the T*D pairs are flattened into one
+    `rect_intersection_pairs` call (the AABB prescreen discards the
+    far-apart majority before any polygon work)."""
+    boxes_a = np.atleast_2d(boxes_a).astype(np.float64)
+    boxes_b = np.atleast_2d(boxes_b).astype(np.float64)
+    t, d = len(boxes_a), len(boxes_b)
+    if t == 0 or d == 0:
+        return np.zeros((t, d))
+    pa = np.repeat(boxes_a, d, axis=0)                   # (T*D, 7)
+    pb = np.tile(boxes_b, (t, 1))                        # (T*D, 7)
+    inter2d = rect_intersection_pairs(pa[:, [0, 2, 3, 4, 6]],
+                                      pb[:, [0, 2, 3, 4, 6]])
+    h_ov = np.maximum(
+        0.0, np.minimum(pa[:, 1], pb[:, 1]) -
+        np.maximum(pa[:, 1] - pa[:, 5], pb[:, 1] - pb[:, 5]))
+    inter = inter2d * h_ov
+    union = (pa[:, 3] * pa[:, 4] * pa[:, 5] +
+             pb[:, 3] * pb[:, 4] * pb[:, 5] - inter)
+    return np.where(union > 0, inter / union, 0.0).reshape(t, d)
+
+
 def rotated_iou_matrix(boxes_a, boxes_b) -> np.ndarray:
-    """(T, 5) x (D, 5) BEV rotated IoU [x, z, l, w, ry] -> (T, D) in one
-    pairwise sweep."""
+    """(T, 5) x (D, 5) BEV rotated IoU -> (T, D) in one pairwise
+    sweep (same flattening as `three_d_iou_matrix`)."""
     boxes_a = np.atleast_2d(boxes_a).astype(np.float64)
     boxes_b = np.atleast_2d(boxes_b).astype(np.float64)
     t, d = len(boxes_a), len(boxes_b)
@@ -126,3 +253,48 @@ def rotated_iou_matrix(boxes_a, boxes_b) -> np.ndarray:
     inter = rect_intersection_pairs(pa, pb)
     union = pa[:, 2] * pa[:, 3] + pb[:, 2] * pb[:, 3] - inter
     return np.where(union > 0, inter / union, 0.0).reshape(t, d)
+
+
+def aligned_iou_2d_matrix(boxes_a, boxes_b) -> np.ndarray:
+    """[x1, y1, x2, y2] (T, 4) x (D, 4) -> (T, D), broadcast form."""
+    boxes_a = np.atleast_2d(boxes_a).astype(np.float64)
+    boxes_b = np.atleast_2d(boxes_b).astype(np.float64)
+    if len(boxes_a) == 0 or len(boxes_b) == 0:
+        return np.zeros((len(boxes_a), len(boxes_b)))
+    a, b = boxes_a[:, None], boxes_b[None, :]
+    x1 = np.maximum(a[..., 0], b[..., 0])
+    y1 = np.maximum(a[..., 1], b[..., 1])
+    x2 = np.minimum(a[..., 2], b[..., 2])
+    y2 = np.minimum(a[..., 3], b[..., 3])
+    inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = area_a + area_b - inter
+    return np.where(union > 0, inter / union, 0.0)
+
+
+def box_3d_corners(box_3d: np.ndarray) -> np.ndarray:
+    """box_3d (7,) -> (8, 3) corners, numpy (host-side twin of
+    ops/boxes.box_3d_to_corners; bottom face first)."""
+    x, y, z, l, w, h, ry = box_3d[:7]
+    c, s = np.cos(ry), np.sin(ry)
+    xc = np.array([l, l, -l, -l, l, l, -l, -l]) / 2.0
+    zc = np.array([w, -w, -w, w, w, -w, -w, w]) / 2.0
+    yc = np.array([0, 0, 0, 0, -h, -h, -h, -h])
+    return np.stack([c * xc + s * zc + x, yc + y,
+                     -s * xc + c * zc + z], axis=1)
+
+
+def aligned_iou_2d(box_a, boxes_b) -> np.ndarray:
+    """[x1, y1, x2, y2] vs (M, 4)."""
+    boxes_b = np.atleast_2d(boxes_b)
+    x1 = np.maximum(box_a[0], boxes_b[:, 0])
+    y1 = np.maximum(box_a[1], boxes_b[:, 1])
+    x2 = np.minimum(box_a[2], boxes_b[:, 2])
+    y2 = np.minimum(box_a[3], boxes_b[:, 3])
+    inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    area_a = (box_a[2] - box_a[0]) * (box_a[3] - box_a[1])
+    area_b = (boxes_b[:, 2] - boxes_b[:, 0]) * \
+        (boxes_b[:, 3] - boxes_b[:, 1])
+    union = area_a + area_b - inter
+    return np.where(union > 0, inter / union, 0.0)

@@ -58,3 +58,83 @@ def test_without_a_card_it_fails_with_its_reason_on_stdout():
     assert p.returncode == 1
     assert p.stdout.startswith("chip_smoke FAILED: torch.cuda.is_available")
     assert "chip_smoke FAILED" in p.stderr and '"ok"' not in p.stdout
+
+
+def test_eval_fixture_is_the_tracking_fixture_without_pngs(tmp_path):
+    """Phases 9-10's fixture: write_tracking_fixture's files, byte for
+    byte, but the PNGs; its dataset's samples equal those read from the
+    PNGs with cv2, bitwise."""
+    import numpy as np
+    from dodt_tpu_torch.config import unittest_pipeline
+    from dodt_tpu_torch.data import synthetic, tracking
+    a, b = str(tmp_path / "smoke"), str(tmp_path / "writer")
+    scenes = chip_smoke.write_eval_fixture(a, (0.0, 0.5), 4)
+    synthetic.write_tracking_fixture(b, num_videos=2, num_frames=4,
+                                     video_specs=[{"ego_speed": 0.0},
+                                                  {"ego_speed": 0.5}])
+
+    def files(root):
+        return {str(p.relative_to(root)): p.read_bytes()
+                for p in Path(root).rglob("*") if p.is_file()}
+    got, want = files(a), files(b)
+    assert got == {k: v for k, v in want.items() if not k.endswith(".png")}
+    assert len(want) - len(got) == 8
+
+    cfg = chip_smoke.eval_cfg(unittest_pipeline(), b)
+    cfg.dataset.data_stride = 3
+    ds = chip_smoke.eval_dataset(cfg, scenes)
+    ref = tracking.KittiTrackingDataset(cfg.dataset, split="val")
+    assert [c.name for c in ds.couples] == [c.name for c in ref.couples]
+    for idx in range(len(ds.couples)):
+        s, r = ds.load_couple(idx), ref.load_couple(idx)
+        assert s.keys() == r.keys()
+        for k in r:
+            if isinstance(r[k], np.ndarray):
+                assert s[k].dtype == r[k].dtype
+            np.testing.assert_array_equal(s[k], r[k], err_msg=k)
+
+
+def test_eval_outputs_check_on_a_cpu_run(tmp_path):
+    """Phase 10's CPU arm at a small size: run_checkpoint_once over the
+    smoke fixture passes check_eval_outputs, and the check fails on a
+    missing frame file and on a non-finite number (MOTP is infinite by
+    the official protocol only where there is no true positive)."""
+    import json
+    import pytest
+    from dodt_tpu_torch.config import unittest_pipeline
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+    from dodt_tpu_torch.runtime.trainer import (CheckpointIO,
+                                                create_train_state)
+    scenes = chip_smoke.write_eval_fixture(str(tmp_path / "kitti"), (0.5,),
+                                           4)
+    cfg = chip_smoke.eval_cfg(unittest_pipeline(), str(tmp_path / "kitti"))
+    cfg.dataset.data_stride = 3
+    model = DtAvodNet(cfg, ((3.9, 1.6, 1.52),))
+    init_params(model, torch.Generator().manual_seed(5))
+    CheckpointIO(str(tmp_path / "ckpt")).save(
+        1, create_train_state(cfg, model))
+    ds = chip_smoke.eval_dataset(cfg, scenes)
+    out = tmp_path / "out"
+    ev = Evaluator(cfg, model, ds, str(tmp_path / "ckpt"), str(out),
+                   device="cpu")
+    res = ev.run_checkpoint_once()
+    keys = chip_smoke.RESULT_KEYS - {"val_health"}
+    frames, couples = chip_smoke.check_eval_outputs(res, str(out), ds, keys)
+    assert frames == [f"00{f:04d}.txt" for f in range(4)]
+    assert couples == ["000000_000003.txt", "000003_000003.txt"]
+    assert dict(chip_smoke.numbers({"a": {"b": 1.5, "c": "x"}})) == {
+        "results/a/b": 1.5}
+    path = out / "results_1.json"
+    disk = json.loads(path.read_text())
+    for key, value in (("MOTA", float("inf")), ("TP", 1)):
+        bad = json.loads(json.dumps(disk))
+        bad["mot"]["overall"]["MOTP"] = float("inf")
+        bad["mot"]["overall"][key] = value
+        path.write_text(json.dumps(bad))
+        with pytest.raises(chip_smoke.PhaseError, match="not finite"):
+            chip_smoke.check_eval_outputs(res, str(out), ds, keys)
+    path.write_text(json.dumps(disk))
+    (out / "predictions_1" / "data" / "000001.txt").unlink()
+    with pytest.raises(chip_smoke.PhaseError, match="frame files"):
+        chip_smoke.check_eval_outputs(res, str(out), ds, keys)

@@ -3,6 +3,7 @@ and the port's independence from JAX."""
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +86,15 @@ def test_round_trip_is_exact():
     assert "bev_bottleneck.GroupNorm_0.weight" in sd         # flax "scale"
 
 
+PORTED_HOST_MODULES = (
+    "dodt_tpu_torch.data.augment", "dodt_tpu_torch.data.clusters",
+    "dodt_tpu_torch.data.kitti", "dodt_tpu_torch.data.synthetic",
+    "dodt_tpu_torch.data.tracking", "dodt_tpu_torch.eval.kitti_ap",
+    "dodt_tpu_torch.eval.kitti_writer", "dodt_tpu_torch.native",
+    "dodt_tpu_torch.tracking.iou_tracker", "dodt_tpu_torch.tracking.moi",
+    "dodt_tpu_torch.tracking.mot_eval", "dodt_tpu_torch.utils.np_iou")
+
+
 @pytest.mark.parametrize("probe", ["jax", "flax", "orbax", "optax",
                                    "dodt_tpu", "bench"])
 def test_port_imports_no_jax(probe):
@@ -94,21 +104,28 @@ def test_port_imports_no_jax(probe):
     keeps its own copies of the host modules it needs. A fresh
     interpreter, so this process's imports don't count. A Trainer is
     built from the port's own config and checkpoints: its checkpoints,
-    metrics logger and optimiser must not reach for any of them."""
+    metrics logger and optimiser must not reach for any of them, nor an
+    Evaluator (which builds the native AP library); the walk covers
+    every host module copied for the evaluator."""
     code = (
         "import importlib, pkgutil, sys, tempfile\n"
         "import dodt_tpu_torch, chip_smoke, bench_torch\n"
-        "for m in pkgutil.walk_packages(dodt_tpu_torch.__path__,\n"
-        "                               'dodt_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = {m.name for m in pkgutil.walk_packages(\n"
+        "    dodt_tpu_torch.__path__, 'dodt_tpu_torch.')}\n"
+        "for name in sorted(names):\n"
+        "    importlib.import_module(name)\n"
+        f"assert {set(PORTED_HOST_MODULES)!r} <= names, names\n"
         "import torch\n"
         "from dodt_tpu_torch.config import unittest_pipeline\n"
-        "from dodt_tpu_torch.runtime import trainer\n"
+        "from dodt_tpu_torch.runtime import evaluator, trainer\n"
         "cfg = unittest_pipeline()\n"
         "model = torch.nn.Linear(2, 2)\n"
-        "tr = trainer.Trainer(cfg, model, None, tempfile.mkdtemp())\n"
+        "tr = trainer.Trainer(cfg, model, None, tempfile.mkdtemp(),\n"
+        "                      device='cpu')\n"
         "tr.ckpt.save(1, trainer.create_train_state(cfg, model))\n"
         "assert tr.ckpt.restore_params(1)\n"
+        "evaluator.Evaluator(cfg, model, None, tr.ckpt.dir,\n"
+        "                    tempfile.mkdtemp(), device='cpu')\n"
         f"found = [m for m in sys.modules if m == {probe!r}\n"
         f"         or m.startswith({probe!r} + '.')]\n"
         "print(found, file=sys.stderr)\n"
@@ -116,3 +133,21 @@ def test_port_imports_no_jax(probe):
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_native_build_writes_nothing_beside_the_sources():
+    """native.build() compiles into build/native/ at the repository root
+    and leaves dodt_tpu_torch/ as it was."""
+    from dodt_tpu_torch import native
+    pkg = os.path.join(REPO, "dodt_tpu_torch")
+
+    def files():
+        return {os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+                if "__pycache__" not in d}
+    before = files()
+    assert native.build(force=True)
+    assert files() == before
+    for name in native.FLAGS:
+        path = native.library_path(name)
+        assert path.parent == Path(REPO, "build", "native")
+        assert path.is_file()

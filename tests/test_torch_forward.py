@@ -131,7 +131,7 @@ def test_forward_matches_port_streaming(fixture, fusion_top_k):
     model = _torch_model(_configured(cfg0, fusion_top_k, 0.0), params)
     mono = model(_tensors(batch))
     for i in range(2):
-        pred = StreamingPredictor(model)
+        pred = StreamingPredictor(model, device="cpu")
         for f in range(2):
             out = pred.push_keyframe({
                 "points": batch["points"][i:i + 1, f],

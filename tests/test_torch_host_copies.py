@@ -145,3 +145,478 @@ def test_make_batch_equals_bench(seed):
     np.testing.assert_array_equal(
         synthetic_scan.velodyne_like_points(rng_a, 1000),
         bench.velodyne_like_points(rng_b, 1000))
+
+
+# ---------------------------------------------------------------------------
+# Data, scoring and tracking copies: exactly equal on seeded inputs, except
+# the port's native AP library against the Python route (1e-9 of an AP
+# point: the same arithmetic compiled without -march, so no fused
+# multiply-adds).
+
+import dataclasses
+import os
+
+from dodt_tpu import native as jnative
+from dodt_tpu.data import augment as jaug
+from dodt_tpu.data import kitti as jkitti
+from dodt_tpu.data import synthetic as jsynth
+from dodt_tpu.data import tracking as jtracking
+from dodt_tpu.eval import kitti_ap as jap
+from dodt_tpu.eval import kitti_writer as jwriter
+from dodt_tpu.tracking import iou_tracker as jtracker
+from dodt_tpu.tracking import moi as jmoi
+from dodt_tpu.tracking import mot_eval as jmot
+from dodt_tpu_torch import native as tnative
+from dodt_tpu_torch.data import augment as taug
+from dodt_tpu_torch.data import kitti as tkitti
+from dodt_tpu_torch.data import synthetic as tsynth
+from dodt_tpu_torch.data import tracking as ttracking
+from dodt_tpu_torch.eval import kitti_ap as tap
+from dodt_tpu_torch.eval import kitti_writer as twriter
+from dodt_tpu_torch.tracking import iou_tracker as ttracker
+from dodt_tpu_torch.tracking import moi as tmoi
+from dodt_tpu_torch.tracking import mot_eval as tmot
+
+# a static video of surface scans and an ego-motion video of beam scans
+# with rendered images: every scene path of the writer
+VIDEO_SPECS = [{"ego_speed": 0.0},
+               {"ego_speed": 0.5, "scan": "beam", "render_images": True}]
+
+
+def assert_same(got, want, path="x"):
+    """Equal values, types and array dtypes, recursively."""
+    if dataclasses.is_dataclass(want):
+        assert type(got).__name__ == type(want).__name__, path
+        for f in dataclasses.fields(want):
+            assert_same(getattr(got, f.name), getattr(want, f.name),
+                        f"{path}.{f.name}")
+    elif isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        for k in want:
+            assert_same(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray), path
+        assert got.dtype == want.dtype and got.shape == want.shape, path
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert type(got) is type(want), (path, type(got), type(want))
+        assert got == want or (got != got and want != want), path
+
+
+@pytest.fixture(scope="module")
+def fixture_roots(tmp_path_factory):
+    """The same fixture written by both packages."""
+    roots = {}
+    for name, mod in (("jax", jsynth), ("port", tsynth)):
+        roots[name] = str(tmp_path_factory.mktemp(name) / "kitti")
+        mod.write_tracking_fixture(roots[name], num_videos=2, num_frames=4,
+                                   video_specs=VIDEO_SPECS)
+    # one DontCare region per video, for the parsers' DontCare paths
+    for root in roots.values():
+        for vid in (0, 1):
+            with open(os.path.join(root, "training", "label_02",
+                                   f"{vid:04d}.txt"), "a") as f:
+                f.write("1 -1 DontCare -1 -1 -10 600.00 150.00 700.00 "
+                        "200.00 -1 -1 -1 -1000 -1000 -1000 -10\n")
+    return roots
+
+
+def test_write_tracking_fixture_byte_for_byte(fixture_roots):
+    files = {}
+    for name, root in fixture_roots.items():
+        files[name] = sorted(os.path.relpath(os.path.join(d, f), root)
+                             for d, _, fs in os.walk(root) for f in fs)
+    assert files["port"] == files["jax"]
+    assert any(f.endswith(".png") for f in files["jax"])
+    for rel in files["jax"]:
+        with open(os.path.join(fixture_roots["jax"], rel), "rb") as f:
+            want = f.read()
+        with open(os.path.join(fixture_roots["port"], rel), "rb") as f:
+            assert f.read() == want, rel
+
+
+def _dataset_cfg(root, max_points):
+    cfg = jcfg.unittest_pipeline()
+    cfg.dataset.dataset_dir = root
+    cfg.dataset.max_points = max_points
+    cfg.dataset.video_train_ids = (0,)
+    cfg.dataset.aug_list = (jaug.AUG_FLIPPING, jaug.AUG_PCA_JITTER)
+    return cfg
+
+
+@pytest.mark.parametrize("max_points", [1024, 16384],
+                         ids=["subsampled", "padded"])
+@pytest.mark.parametrize("augs", [(), ("flipping",),
+                                  ("flipping", "pca_jitter")],
+                         ids=["none", "flip", "flip_pca"])
+def test_load_couple_sample_for_sample(fixture_roots, max_points, augs):
+    """Every couple of both videos, every key, bitwise, under the same
+    generator; the port reads its camera images through
+    _camera_image."""
+    cfg = _dataset_cfg(fixture_roots["jax"], max_points)
+    jds = jtracking.KittiTrackingDataset(cfg.dataset, split="trainval")
+    tds = ttracking.KittiTrackingDataset(config_from_json(cfg).dataset,
+                                         split="trainval")
+    assert_same([vars(c) for c in tds.couples],
+                [vars(c) for c in jds.couples])
+    assert len(jds.couples) == 8
+    for idx in range(len(jds.couples)):
+        want = jds.load_couple(idx, augs, np.random.RandomState(idx))
+        got = tds.load_couple(idx, augs, np.random.RandomState(idx))
+        assert_same(got, want, f"couple {idx}")
+
+
+def test_next_batch_and_splits_equal(fixture_roots):
+    """Epoch shuffling, sampled augmentations and stacking over three
+    batches; the four splits' couples at stride 2."""
+    cfg = _dataset_cfg(fixture_roots["jax"], 1024)
+    cfg.dataset.data_stride = 2
+    tcfg_ = config_from_json(cfg).dataset
+    for split in ("train", "val", "trainval", "test"):
+        assert_same([vars(c) for c in ttracking.KittiTrackingDataset(
+            tcfg_, split=split).couples],
+            [vars(c) for c in jtracking.KittiTrackingDataset(
+                cfg.dataset, split=split).couples], split)
+    jds = jtracking.KittiTrackingDataset(cfg.dataset, split="train")
+    tds = ttracking.KittiTrackingDataset(tcfg_, split="train")
+    for i in range(3):
+        assert_same(tds.next_batch(2), jds.next_batch(2), f"batch {i}")
+
+
+def test_kitti_readers_and_ego_transforms_equal(fixture_roots):
+    """Labels (with and without DontCare, filtered), calibration, lidar,
+    FOV filter, planes, oxts, ego motion and every box and point
+    transform, over the ego-motion video's frame pairs."""
+    base = os.path.join(fixture_roots["jax"], "training")
+    lab_dir, calib_dir = (os.path.join(base, "label_02"),
+                          os.path.join(base, "calib"))
+    oxts_dir = os.path.join(base, "oxts")
+    calib = jkitti.read_tracking_calibration(calib_dir, 1)
+    assert_same(tkitti.read_tracking_calibration(calib_dir, 1), calib)
+    rng = np.random.RandomState(9)
+    for vid in (0, 1):
+        for frame in (None, 1):
+            for dc in (False, True):
+                want = jkitti.read_tracking_labels(lab_dir, vid, frame, dc)
+                assert_same(tkitti.read_tracking_labels(lab_dir, vid, frame,
+                                                        dc), want)
+                assert_same(tkitti.filter_labels(want, ("Car",), 1, 2),
+                            jkitti.filter_labels(want, ("Car",), 1, 2))
+        velo_dir = os.path.join(base, "velodyne", f"{vid:04d}")
+        velo = jkitti.read_lidar(velo_dir, "000002")
+        assert_same(tkitti.read_lidar(velo_dir, "000002"), velo)
+        cam = jkitti.lidar_to_cam_frame(velo[:, :3], calib)
+        assert_same(tkitti.lidar_to_cam_frame(velo[:, :3], calib), cam)
+        assert_same(tkitti.filter_to_image_fov(cam, calib, (375, 1242)),
+                    jkitti.filter_to_image_fov(cam, calib, (375, 1242)))
+        planes = os.path.join(base, "planes", f"{vid:04d}")
+        assert_same(tkitti.read_ground_plane(planes, "000001"),
+                    jkitti.read_ground_plane(planes, "000001"))
+    labels = jkitti.read_tracking_labels(lab_dir, 1, 3)
+    boxes = labels.box_3d
+    for a, b in ((0, 3), (1, 2), (2, 2), (3, 0)):
+        oa, ob = (jkitti.read_oxts(oxts_dir, 1, f) for f in (a, b))
+        assert_same(tkitti.read_oxts(oxts_dir, 1, b), ob)
+        ego = jkitti.ego_motion(oa, ob)
+        assert_same(tkitti.ego_motion(oa, ob), ego)
+        assert tkitti.is_identity_ego(*ego) == jkitti.is_identity_ego(*ego)
+        trans, matrix, dyaw = ego
+        for inverse in (False, True):
+            assert_same(tkitti.transform_boxes_3d(boxes, calib, *ego,
+                                                  inverse=inverse),
+                        jkitti.transform_boxes_3d(boxes, calib, *ego,
+                                                  inverse=inverse))
+        assert_same(tkitti.transform_labels_to_prev_frame(labels, calib,
+                                                          *ego),
+                    jkitti.transform_labels_to_prev_frame(labels, calib,
+                                                          *ego))
+        assert_same(tkitti.inverse_transform_labels(labels, calib, *ego),
+                    jkitti.inverse_transform_labels(labels, calib, *ego))
+        pts = rng.uniform(-20, 20, (50, 3))
+        assert_same(tkitti.transform_points_to_prev_frame(pts, trans,
+                                                          matrix),
+                    jkitti.transform_points_to_prev_frame(pts, trans,
+                                                          matrix))
+        assert_same(tkitti.ego_bev_affine(calib, trans, matrix),
+                    jkitti.ego_bev_affine(calib, trans, matrix))
+
+
+def test_augment_equal():
+    rng = np.random.RandomState(2)
+    img = rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)
+    pts = rng.uniform(-10, 10, (40, 3)).astype(np.float32)
+    boxes = rng.uniform(-5, 5, (6, 7)).astype(np.float32)
+    plane = np.array([0.01, -1.0, 0.02, 1.65], np.float32)
+    p2 = rng.uniform(0, 700, (3, 4))
+    for name, arg in (("flip_image", img), ("flip_points", pts),
+                      ("flip_boxes_3d", boxes), ("flip_ground_plane", plane)):
+        assert_same(getattr(taug, name)(arg), getattr(jaug, name)(arg))
+    assert_same(taug.flip_calib_p2(p2, (375, 1242)),
+                jaug.flip_calib_p2(p2, (375, 1242)))
+    assert_same(taug.pca_jitter(img, np.random.RandomState(4)),
+                jaug.pca_jitter(img, np.random.RandomState(4)))
+
+
+def _det_boxes(rng, n):
+    return np.stack([rng.uniform(-15, 15, n), np.full(n, 1.65),
+                     rng.uniform(6, 50, n), rng.uniform(3.4, 4.4, n),
+                     rng.uniform(1.5, 1.8, n), rng.uniform(1.4, 1.7, n),
+                     rng.uniform(-np.pi, np.pi, n)], -1)
+
+
+def test_kitti_writer_equal(fixture_roots):
+    calib = jkitti.read_tracking_calibration(
+        os.path.join(fixture_roots["jax"], "training", "calib"), 0)
+    rng = np.random.RandomState(6)
+    boxes = _det_boxes(rng, 30)
+    boxes[:3, 2] = [-5.0, 0.05, 200.0]            # behind, at, far away
+    scores = rng.uniform(0, 1, 30)
+    cls = rng.randint(0, 2, 30)
+    for b in boxes:
+        assert_same(twriter.project_box_to_image(b, calib, (1242, 375)),
+                    jwriter.project_box_to_image(b, calib, (1242, 375)))
+    want = jwriter.predictions_to_kitti_lines(
+        boxes, scores, cls, calib, (1242, 375), ("Car", "Van"), 0.2)
+    assert want and twriter.predictions_to_kitti_lines(
+        boxes, scores, cls, calib, (1242, 375), ("Car", "Van"), 0.2) == want
+    by_frame = {3: [{"box_3d": b, "score": s, "class_idx": int(c),
+                     "offsets": rng.normal(size=3), "offsets_span": 3,
+                     "coexist": 0.7} for b, s, c in zip(boxes, scores, cls)],
+                6: [{"box_3d": boxes[0], "score": 0.5, "offsets": None}]}
+    lines = jwriter.couple_detections_to_lines(by_frame, ("Car", "Van"))
+    assert twriter.couple_detections_to_lines(by_frame,
+                                              ("Car", "Van")) == lines
+    assert_same(twriter.parse_couple_lines(lines, ("Car", "Van")),
+                jwriter.parse_couple_lines(lines, ("Car", "Van")))
+    for path, mod in ((fixture_roots["port"], twriter),
+                      (fixture_roots["jax"], jwriter)):
+        mod.write_kitti_file(os.path.join(path, "pred.txt"), lines)
+        mod.write_kitti_file(os.path.join(path, "empty.txt"), [])
+    for name in ("pred.txt", "empty.txt"):
+        with open(os.path.join(fixture_roots["port"], name)) as f:
+            got = f.read()
+        with open(os.path.join(fixture_roots["jax"], name)) as f:
+            assert got == f.read()
+
+
+def _ap_scene(rng, mod, n_frames=12):
+    """GT with Car, Van and Pedestrian, DontCare regions; detections
+    near the GT plus false positives."""
+    gts, dets = [], []
+    for _ in range(n_frames):
+        g = rng.randint(1, 6)
+        boxes = _det_boxes(rng, g)
+        bbs = np.stack([rng.uniform(0, 800, g), rng.uniform(0, 200, g),
+                        np.zeros(g), np.zeros(g)], 1)
+        bbs[:, 2] = bbs[:, 0] + rng.uniform(20, 200, g)
+        bbs[:, 3] = bbs[:, 1] + rng.uniform(20, 120, g)
+        types = list(rng.choice(["Car", "Car", "Van", "Pedestrian"], g))
+        dc = np.array([[900.0, 100.0, 1000.0, 180.0]])[:rng.randint(0, 2)]
+        gts.append(mod.FrameGt(boxes, bbs, types,
+                               rng.randint(0, 3, g).astype(float),
+                               rng.uniform(0, 0.6, g), dc))
+        keep = rng.rand(g) > 0.2
+        n_fp = rng.randint(0, 3)
+        d_boxes = np.concatenate([boxes[keep] + rng.normal(
+            0, 0.15, (keep.sum(), 7)), _det_boxes(rng, n_fp)])
+        fp_bbs = rng.uniform(0, 900, (n_fp, 4))
+        fp_bbs[:, 2:] = fp_bbs[:, :2] + rng.uniform(20, 90, (n_fp, 2))
+        d_bbs = np.concatenate([bbs[keep] + rng.normal(0, 4, (keep.sum(),
+                                                               4)), fp_bbs])
+        d_types = list(rng.choice(["Car", "Pedestrian"], len(d_boxes)))
+        dets.append(mod.FrameDet(d_boxes, d_bbs,
+                                 rng.uniform(0.05, 1, len(d_boxes)),
+                                 d_types))
+    return gts, dets
+
+
+@pytest.mark.parametrize("cls,metric,min_iou", [
+    ("Car", "image", 0.7), ("Car", "ground", 0.7), ("Car", "3d", 0.7),
+    ("Car", "3d", 0.5), ("Pedestrian", "ground", 0.5)])
+def test_evaluate_ap_equal_on_both_routes(cls, metric, min_iou):
+    """The port's Python route equals the JAX Python route exactly; the
+    port's native library, built into build/native/, to 1e-9; route()
+    names the route taken."""
+    assert tnative.build()
+    jg, jd = _ap_scene(np.random.RandomState(12), jap)
+    tg, td = _ap_scene(np.random.RandomState(12), tap)
+    want = jap.evaluate_ap(jg, jd, cls, metric, min_iou, use_native=False)
+    assert any(v > 0 for v in want.values())
+    got_py = tap.evaluate_ap(tg, td, cls, metric, min_iou, use_native=False)
+    assert tnative.route() == "python"
+    assert_same(got_py, want)
+    got_cc = tap.evaluate_ap(tg, td, cls, metric, min_iou)
+    assert tnative.route() == "native"
+    assert got_cc.keys() == want.keys()
+    for k in want:
+        assert abs(got_cc[k] - want[k]) <= 1e-9, (k, got_cc[k], want[k])
+
+
+def test_native_loader_equals_the_jax_native_loader(fixture_roots):
+    base = os.path.join(fixture_roots["jax"], "training")
+    calib = jkitti.read_tracking_calibration(os.path.join(base, "calib"), 1)
+    velo_to_rect = (calib.r0 @ np.vstack(
+        [calib.velo_to_cam, [0, 0, 0, 1]])[:3])[:3]
+    path = os.path.join(base, "velodyne", "0001", "000002.bin")
+    ego = jkitti.ego_motion(*(jkitti.read_oxts(os.path.join(base, "oxts"),
+                                               1, f) for f in (0, 2)))
+    assert tnative.build() and (jnative.available() or jnative.build())
+    for args in ((), (ego[0], ego[1])):
+        want = jnative.load_velodyne_cam(path, velo_to_rect, calib.p2,
+                                         (375, 1242), *args)
+        got = tnative.load_velodyne_cam(path, velo_to_rect, calib.p2,
+                                        (375, 1242), *args)
+        assert len(want) > 100
+        # the JAX package's library is built with -march=native (fused
+        # multiply-adds): float32 rounding apart
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_np_iou_equal():
+    rng = np.random.RandomState(8)
+    a, b = _det_boxes(rng, 9), _det_boxes(rng, 7)
+    b[:3] = a[:3] + rng.normal(0, 0.3, (3, 7))      # overlapping pairs
+    assert_same(tiou.three_d_iou_matrix(a, b), jiou.three_d_iou_matrix(a, b))
+    assert_same(tiou.three_d_iou(a[0], b), jiou.three_d_iou(a[0], b))
+    bev = [0, 2, 3, 4, 6]
+    assert_same(tiou.rotated_iou(a[0][bev], b[:, bev]),
+                jiou.rotated_iou(a[0][bev], b[:, bev]))
+    assert_same(tiou.rect_intersection_area(a[1][bev], b[1][bev]),
+                jiou.rect_intersection_area(a[1][bev], b[1][bev]))
+    assert_same(tiou.rect_intersection_areas(a[2][bev], b[:, bev]),
+                jiou.rect_intersection_areas(a[2][bev], b[:, bev]))
+    assert_same(tiou.box_3d_corners(a[0]), jiou.box_3d_corners(a[0]))
+    bb_a = np.sort(rng.uniform(0, 100, (9, 2, 2)), 1).transpose(0, 2, 1)
+    bb_a = bb_a.reshape(9, 4)[:, [0, 2, 1, 3]]
+    bb_b = bb_a[:7] + rng.normal(0, 5, (7, 4))
+    assert_same(tiou.aligned_iou_2d_matrix(bb_a, bb_b),
+                jiou.aligned_iou_2d_matrix(bb_a, bb_b))
+    assert_same(tiou.aligned_iou_2d(bb_a[0], bb_b),
+                jiou.aligned_iou_2d(bb_a[0], bb_b))
+
+
+def _track_dets(rng, n_frames, ego):
+    """Cars moving along their offsets, with misses, clutter, random
+    scores and (with ego) box_aligned in the previous frame's
+    coordinates."""
+    starts = _det_boxes(rng, 5)
+    vel = rng.uniform(-1, 1, (5, 3)) * [1.0, 1.5, 0.05]
+    frames = []
+    for f in range(n_frames):
+        dets = []
+        for k in range(5):
+            if rng.rand() < 0.15:
+                continue
+            box = starts[k].copy()
+            box[[0, 2, 6]] += vel[k] * f + rng.normal(0, 0.05, 3)
+            d = {"frame_id": f, "box_3d": box,
+                 "score": float(rng.uniform(0.3, 1)),
+                 "offsets": vel[k] + rng.normal(0, 0.05, 3),
+                 "coexist": float(rng.uniform(0, 1))}
+            if ego:
+                d["box_aligned"] = box + [0, 0, 0.4, 0, 0, 0, 0]
+            dets.append(d)
+        frames.append(dets)
+    return frames
+
+
+@pytest.mark.parametrize("ego", [False, True])
+def test_track_through_ious_equal(ego):
+    frames = _track_dets(np.random.RandomState(20 + ego), 8, ego)
+    for kw in ({}, {"ttl": 2, "frame_gaps": [0, 1, 1, 3, 1, 1, 3, 1]}):
+        want = jtracker.track_through_ious(frames, 0.6, 0.1, 2, **kw)
+        assert want
+        assert_same(ttracker.track_through_ious(frames, 0.6, 0.1, 2, **kw),
+                    want)
+    assert_same(ttracker.trajectories_to_kitti(want),
+                jtracker.trajectories_to_kitti(want))
+
+
+@pytest.mark.parametrize("num_frames", [2, 3, 4])
+def test_interpolate_non_keyframes_equal(num_frames):
+    rng = np.random.RandomState(30 + num_frames)
+    frames = _track_dets(rng, num_frames, False)
+    d0, d1 = frames[0], frames[-1]
+    for d in d0[::2]:
+        del d["coexist"]                      # no coexist head: 0.5
+    want = jmoi.interpolate_non_keyframes(d0, d1, num_frames, 0.4)
+    assert_same(tmoi.interpolate_non_keyframes(d0, d1, num_frames, 0.4),
+                want)
+    assert_same(tmoi.match_pairs(d0, d1), jmoi.match_pairs(d0, d1))
+
+
+def _mot_sequence(rng, n_frames=10):
+    """GT tracks (car, van, pedestrian; truncation and occlusion;
+    DontCare) and predictions near them with id switches, misses and
+    false positives."""
+    n = 6
+    start = rng.uniform(0, 900, (n, 2))
+    size = rng.uniform(15, 120, (n, 2))
+    vel = rng.uniform(-15, 15, (n, 2))
+    types = rng.choice(["car", "car", "van", "pedestrian"], n)
+    gt_frames, pred_frames = [], []
+    for f in range(n_frames):
+        alive = [k for k in range(n) if rng.rand() > 0.1]
+        boxes = [np.concatenate([start[k] + vel[k] * f,
+                                 start[k] + vel[k] * f + size[k]])
+                 for k in alive]
+        gt_frames.append({
+            "ids": list(alive), "boxes": boxes,
+            "types": [types[k] for k in alive],
+            "truncation": list(rng.randint(0, 3, len(alive))),
+            "occlusion": list(rng.randint(0, 4, len(alive))),
+            "dontcare": [np.array([950.0, 0.0, 1100.0, 300.0])]})
+        ids, pboxes = [], []
+        for k, b in zip(alive, boxes):
+            if rng.rand() < 0.2:
+                continue
+            ids.append(k if rng.rand() > 0.1 else k + 10)
+            pboxes.append(b + rng.normal(0, 4, 4))
+        for j in range(rng.randint(0, 3)):
+            x = rng.uniform(0, 1000, 2)
+            ids.append(20 + j)
+            pboxes.append(np.concatenate([x, x + 40]))
+        pred_frames.append({"ids": ids, "boxes": pboxes})
+    return gt_frames, pred_frames
+
+
+@pytest.mark.parametrize("cls", ["car", "pedestrian"])
+def test_mot_scorer_equal(cls):
+    seqs = [_mot_sequence(np.random.RandomState(s)) for s in (40, 41)]
+    for gt, pred in seqs:
+        want = jmot.evaluate_tracking(gt, pred, cls=cls)
+        assert_same(tmot.evaluate_tracking(gt, pred, cls=cls), want)
+    pooled = {}
+    for name, mod in (("port", tmot), ("jax", jmot)):
+        ev = mod.MotEvaluator(cls=cls)
+        for gt, pred in seqs:
+            ev.add_sequence(gt, pred)
+        pooled[name] = ev.results()
+    assert pooled["jax"]["TP"] > 0
+    assert_same(pooled["port"], pooled["jax"])
+
+
+def test_get_clusters_equal(fixture_roots, tmp_path):
+    """k-means clusters per class from each package's dataset (Car from
+    the labels, Pedestrian from the priors), through the txt cache and
+    back."""
+    cfg = _dataset_cfg(fixture_roots["jax"], 1024)
+    cfg.dataset.classes = ("Car", "Pedestrian")
+    cfg.dataset.num_clusters = (2, 1)
+    jds = jtracking.KittiTrackingDataset(cfg.dataset, split="trainval")
+    tds = ttracking.KittiTrackingDataset(config_from_json(cfg).dataset,
+                                         split="trainval")
+    for _ in range(2):                            # computed, then cached
+        want = jclusters.get_clusters(jds, cfg, str(tmp_path / "jax"))
+        assert len(want) == 3
+        assert_same(tclusters.get_clusters(tds, cfg, str(tmp_path / "port")),
+                    want)
+    assert_same(tclusters.get_clusters(tds, cfg),
+                jclusters.get_clusters(jds, cfg))
+    pts = np.random.RandomState(3).uniform(1, 5, (40, 3))
+    assert_same(tclusters.kmeans(pts, 3), jclusters.kmeans(pts, 3))

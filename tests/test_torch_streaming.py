@@ -81,7 +81,7 @@ def runs(request, fixture):
     tmodel = tdt.DtAvodNet(config_from_json(cfg), CLUSTERS)
     tmodel.load_state_dict(flax_to_state_dict(params), strict=True)
     tmodel.eval()
-    jp, tp = JaxPredictor(jmodel, params), StreamingPredictor(tmodel)
+    jp, tp = JaxPredictor(jmodel, params), StreamingPredictor(tmodel, device="cpu")
     out = {}
     for name, frame, ego in (("first", frames[0], None),
                              ("static", frames[1], None),
@@ -138,7 +138,7 @@ def latency(fixture):
     jp = JaxPredictor(jdt.DtAvodNet(cfg=cfg, cluster_sizes=CLUSTERS), params)
     tmodel = tdt.DtAvodNet(config_from_json(cfg), CLUSTERS)
     tmodel.load_state_dict(flax_to_state_dict(params), strict=True)
-    tp = StreamingPredictor(tmodel.eval())
+    tp = StreamingPredictor(tmodel.eval(), device="cpu")
     stats = []
     for frame in (frames[0], frames[1], frames[0]):
         jp.push_keyframe(frame, fetch=True)
@@ -158,3 +158,31 @@ def test_latency_stats_match_jax(latency, pushes, keys):
     for k in keys:
         assert set(got[k]) == set(want[k])
         assert got[k]["n"] == want[k]["n"]
+
+
+@pytest.mark.parametrize("entry", ["predictor", "trainer", "evaluator"])
+def test_entry_points_run_on_the_card_by_default(entry, tmp_path):
+    """StreamingPredictor, Trainer and Evaluator take the card unless the
+    caller passes device="cpu": without a card the default raises
+    (torch's own error) instead of running on the CPU; with one, the
+    model lands on it."""
+    from dodt_tpu_torch.config import unittest_pipeline
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+    from dodt_tpu_torch.runtime.trainer import Trainer
+    cfg = unittest_pipeline()
+    make = {
+        "predictor": lambda m, **kw: StreamingPredictor(m, **kw),
+        "trainer": lambda m, **kw: Trainer(cfg, m, None, str(tmp_path),
+                                           metrics_path=None, **kw),
+        "evaluator": lambda m, **kw: Evaluator(cfg, m, None, str(tmp_path),
+                                               str(tmp_path / "out"), **kw),
+    }[entry]
+    on_cpu = make(torch.nn.Linear(2, 2), device="cpu")
+    assert next(on_cpu.model.parameters()).device.type == "cpu"
+    model = torch.nn.Linear(2, 2)
+    if torch.cuda.is_available():
+        assert next(make(model).model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make(model)
+        assert next(model.parameters()).device.type == "cpu"

@@ -540,13 +540,16 @@ def test_resumed_run_equals_uninterrupted(fixture, tmp_path):
 def _resume(cfg0, params, batch, tmp_path):
     cfg = _small_train_cfg(cfg0, tmp_path)
     a = ttrain.Trainer(_pc(cfg), _port(cfg, params), _Stream(batch),
-                       str(tmp_path / "a"), metrics_path=None)
+                       str(tmp_path / "a"), metrics_path=None,
+                       device="cpu")
     state_a, hist = a.train(max_steps=4, log_every=2, prefetch=0)
     assert [h["step"] for h in hist] == [2, 4]
     stream = _Stream(batch)
     ttrain.Trainer(_pc(cfg), _port(cfg, params), stream, str(tmp_path / "b"),
-                   metrics_path=None).train(max_steps=2, prefetch=0)
-    b = ttrain.Trainer(_pc(cfg), _port(cfg, params), stream, str(tmp_path / "b"))
+                   metrics_path=None, device="cpu").train(max_steps=2,
+                                                          prefetch=0)
+    b = ttrain.Trainer(_pc(cfg), _port(cfg, params), stream, str(tmp_path / "b"),
+                       device="cpu")
     state_b, _ = b.train(max_steps=4, log_every=2, prefetch=0)
     assert b.ckpt.all_steps() == [2, 4] and state_b.step == 4
     for tree_a, tree_b in ((state_a.params, state_b.params),
@@ -565,7 +568,7 @@ def test_trainer_prefetch_and_logging(fixture, tmp_path):
     cfg0, params, batch, _ = fixture
     cfg = _small_train_cfg(cfg0, tmp_path)
     tr = ttrain.Trainer(_pc(cfg), _port(cfg, params), _Stream(batch),
-                        str(tmp_path))
+                        str(tmp_path), device="cpu")
     state, hist = tr.train(max_steps=2, log_every=1, prefetch=2)
     assert state.step == 2 and len(hist) == 2
     lines = [json.loads(x) for x in
@@ -582,7 +585,7 @@ def test_debug_nans_stops_on_a_non_finite_loss(fixture, tmp_path):
     bad = dict(batch)
     bad["corr_offsets"] = np.full_like(batch["corr_offsets"], np.nan)
     tr = ttrain.Trainer(_pc(cfg), _port(cfg, params), _Stream(bad),
-                        str(tmp_path), metrics_path=None)
+                        str(tmp_path), metrics_path=None, device="cpu")
     with pytest.raises((FloatingPointError, RuntimeError)):
         tr.train(max_steps=1, prefetch=0)
 
@@ -649,12 +652,14 @@ def test_init_or_restore_pretrained(fixture, tmp_path):
     cfg0, params, batch, _ = fixture
     cfg = _small_train_cfg(cfg0, tmp_path)
     src = ttrain.Trainer(_pc(cfg), _port(cfg, params), _Stream(batch),
-                         str(tmp_path / "src"), metrics_path=None)
+                         str(tmp_path / "src"), metrics_path=None,
+                         device="cpu")
     src_state, _ = src.train(max_steps=1, prefetch=0)
     cfg.train.pretrained_checkpoint = str(tmp_path / "src")
     cfg.train.pretrained_full_state = True
     full = ttrain.Trainer(_pc(cfg), _port(cfg, params), _Stream(batch),
-                          str(tmp_path / "full")).init_or_restore()
+                          str(tmp_path / "full"),
+                          device="cpu").init_or_restore()
     assert full.step == 1
     for k in src_state.params:
         assert torch.equal(full.opt_state["nu"][k],
@@ -662,7 +667,8 @@ def test_init_or_restore_pretrained(fixture, tmp_path):
     cfg.train.pretrained_full_state = False
     cfg.train.pretrained_subtrees = ("rpn_cls",)
     part = ttrain.Trainer(_pc(cfg), _port(cfg, params), _Stream(batch),
-                          str(tmp_path / "part")).init_or_restore()
+                          str(tmp_path / "part"),
+                          device="cpu").init_or_restore()
     sd = convert.flax_to_state_dict(params)
     assert part.step == 0
     for k in sd:
@@ -734,7 +740,9 @@ def test_val_health_matches_jax(fixture, tmp_path):
     jev = jeval.Evaluator(cfg, jmodel, ds, ckpt_dir=str(tmp_path / "c"),
                           output_dir=str(tmp_path / "o"))
     want = jev.val_health(params, max_couples=3)
-    ev = teval.Evaluator(_pc(cfg), _port(cfg, params), ds)
+    ev = teval.Evaluator(_pc(cfg), _port(cfg, params), ds,
+                         str(tmp_path / "c"), str(tmp_path / "port"),
+                         device="cpu")
     got = ev.val_health(max_couples=3,
                         rand=JaxDraws(jax.random.PRNGKey(0)))
     assert got["num_couples"] == want["num_couples"] == 3
