@@ -9,9 +9,10 @@ and its reason on stdout and stderr, and prints no result:
      one compiler process per source, all started together); no kernel
      may spill registers (the compiler's -Xptxas -v report);
   2. hold each kernel against its plain PyTorch twin on the card at the
-     shapes the model paths give it (B2 on f32 and bf16 maps, B4 at the
-     public op's and at other D, strides, channels, odd maps, N = 3 and
-     bf16 inputs), and time both after warm-up (timed(): per-call time
+     shapes the model paths give it (B1 at the keyframe's batch 1, the
+     pair's 2 and the Stack's 4 frames; B2 on 2 and on the Stack's 4
+     maps, f32 and bf16; B4 at the public op's and at other D, strides,
+     channels, odd maps, N = 3 and bf16 inputs), and time both after warm-up (timed(): per-call time
      through the wrapper, device time with the host out of the way, host
      time per enqueue); B4's gradient route against the twin's autograd;
   3. run the full-width cars_dt_tracking slice (seeded random weights,
@@ -51,7 +52,28 @@ and its reason on stdout and stderr, and prints no result:
  10. run_checkpoint_once of the small config (f32 towers, plain convs)
      on one ego-motion video at data_stride 3 on the card and on the CPU,
      from one checkpoint: the per-frame boxes and the AP and MOT results
-     compared.
+     compared;
+ 11. the staged training flow at full width through Trainer: the
+     single-frame detector (cars_single_frame, DtAvodNet(num_frames=1))
+     trains 3 steps on a one-frame stream, its forward is timed and its
+     checkpoint evaluated detection-only (KITTI object fixture without
+     PNGs, 8 samples, twice) with B1 and B2 launched in every forward;
+     cars_dt_tracking_staged restores and freezes its seven detector
+     subtrees for 2 steps of the paired model (every frozen tensor
+     bit-equal, the correlation branch moved), and
+     cars_dt_tracking_finetune continues one step (the detector moves);
+     prints the single-frame forward ms, detection-eval samples/s and its
+     stages;
+ 12. the Stack model at full width (cars_dt_tracking(data_stride=3),
+     stack_avod_model, 4 frames, random weights): its forward timed with
+     B1 and B2 launched, 2 Trainer steps (compute_stack_losses; step ms,
+     peak memory), and run_checkpoint_once over phase 9's fixture read
+     through KittiTrackingStackDataset (val_health on), every result
+     finite and every file present;
+ 13. the one-frame and the Stack forward of the small config (f32, plain
+     convolutions) on the card against the CPU (phase 6's rule), and the
+     one-frame model's detection-only evaluation on the card against the
+     CPU (phase 10's rule).
 
 Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
 twin's autograd backward) against the twins' autograd, and times B3's
@@ -82,7 +104,9 @@ The second-to-last line of stdout holds the card's name and power limit,
 the line before it one JSON object with each kernel's launches (on the
 path that runs it: B1-B3 the streaming slice, with the monolithic
 forward's, the train step's and the evaluation's counts beside it,
-``evaluate`` per evaluated couple; B4 its public ops), error and times;
+``evaluate`` per evaluated couple, and the single-frame forward's, per
+single-frame evaluated sample, the Stack forward's and per evaluated
+stack; B4 its public ops), error and times;
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -229,19 +253,28 @@ def main_inputs(dev):
     bs = [(0.1 * torch.randn(co, generator=g)).to(dev) for co in chans[1:]]
     xs = [torch.relu(torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
           for shape in ((1, 88, 100, 128), (1, 45, 150, 128))]
-    maps = torch.randn((2, 350, 400, 32), generator=g).to(dev)
-    cy = torch.rand((2, 300), generator=g) * 0.9 + 0.05
-    cx = torch.rand((2, 300), generator=g) * 0.9 + 0.05
-    hy = (torch.rand((2, 300), generator=g) * 2.5 + 1.0) / 70.0
-    hx = (torch.rand((2, 300), generator=g) * 2.5 + 1.0) / 80.0
-    hy[:, :10] *= 6.0
-    hx[:, :10] *= 6.0
-    boxes = torch.stack([cy - hy, cx - hx, cy + hy, cx + hx], -1).to(dev)
+    maps, boxes = bev_crop_inputs(g, 2, dev)
     a, b = (torch.randn((1, 350, 400, 32), generator=g).to(dev)
             for _ in range(2))
     w = (torch.randn((121, 1), generator=g) / 11.0).to(dev)
     return {"chans": chans, "ws": ws, "bs": bs, "xs": xs, "maps": maps,
             "boxes": boxes, "a": a, "b": b, "w": w}
+
+
+def bev_crop_inputs(g, m, dev):
+    """B2's inputs for m frames: f32 (m, 350, 400, 32) BEV maps and 300
+    car-sized boxes each in normalised BEV coords (80 m x 70 m map; ten
+    oversized ones exercise the window-edge clamp)."""
+    import torch
+    maps = torch.randn((m, 350, 400, 32), generator=g).to(dev)
+    cy = torch.rand((m, 300), generator=g) * 0.9 + 0.05
+    cx = torch.rand((m, 300), generator=g) * 0.9 + 0.05
+    hy = (torch.rand((m, 300), generator=g) * 2.5 + 1.0) / 70.0
+    hx = (torch.rand((m, 300), generator=g) * 2.5 + 1.0) / 80.0
+    hy[:, :10] *= 6.0
+    hx[:, :10] *= 6.0
+    boxes = torch.stack([cy - hy, cx - hx, cy + hy, cx + hx], -1).to(dev)
+    return maps, boxes
 
 
 def library_calls(inp):
@@ -349,11 +382,13 @@ def kernel_checks(dev):
     # B1: conv4 block of both towers, 128 -> 256 -> 256 -> 256, bf16
     chans, ws, bs, xs = (inp[k] for k in ("chans", "ws", "bs", "xs"))
     err = max(check_chain(x, ws, bs, "conv4") for x in xs)
-    # the monolithic forward hands B1 both frames of a couple at once
-    x2 = torch.relu(torch.randn((2, 88, 100, 128), generator=g)).to(
-        dev, torch.bfloat16)
-    check_chain(x2, ws, bs, "conv4")
-    del x2
+    # the monolithic forward hands B1 both frames of a couple at once, and
+    # the Stack model its 4 frames (data_stride 3) in each per-frame tower
+    for shape in ((2, 88, 100, 128), (4, 88, 100, 128), (4, 45, 150, 128)):
+        x_f = torch.relu(torch.randn(shape, generator=g)).to(
+            dev, torch.bfloat16)
+        check_chain(x_f, ws, bs, "conv4")
+    del x_f
     # the small config's conv4 (16 -> 16, phases 4 and 6 at batch 4), and
     # an odd-sized map through Ci and Co that are multiples of 8 only
     for shape, ch in (((4, 30, 20, 16), (16, 16)),
@@ -373,29 +408,40 @@ def kernel_checks(dev):
     res["conv_chain"]["bound_ms"], res["conv_chain"]["bound_by"] = bound(
         flops, PEAK_BF16, io + sum(nbytes(*pk) for pk in packs))
 
-    # B2: 2 frames x 300 proposals x 7x7 from (350, 400, 32) f32 maps,
-    # read in their own dtype, and from the same maps in bf16
+    def check_window(maps, boxes):
+        """B2 on maps read in their own dtype (f32), and on the same maps
+        in bf16, against its twin. Returns the f32 crop and its error."""
+        got = roi_window.crop_and_resize_window(maps, boxes, 7)
+        maps_bf = maps.to(torch.bfloat16)
+        got_bf = roi_window.crop_and_resize_window(maps_bf, boxes, 7)
+        shape = tuple(got.shape)
+        for what, crop, m_in in (("f32", got, maps),
+                                 ("bf16", got_bf, maps_bf)):
+            want = roi_window.crop_and_resize_window_plain(m_in, boxes, 7)
+            e, scale = rel_err(crop, want)
+            # the kernel rounds each tap to bf16 (the twin casts the map)
+            # and blends in the twin's f32 arithmetic without fused
+            # multiply-adds: equal, and within one bf16 rounding at worst
+            log(f"B2 roi_window {shape} on {what} maps: max_abs_err vs "
+                f"twin {e:.4g} (max |ref| {scale:.4g})")
+            check(e <= 1e-2 * scale, f"roi_window {shape} on {what} maps "
+                  f"disagrees with its twin: {e}")
+            if what == "f32":
+                err = e
+        # a tap rounded to bf16 is the bf16 map's tap: the crops are equal
+        e_fb = rel_err(got, got_bf)[0]
+        log(f"B2 {shape} crop of the f32 maps vs crop of their bf16 cast: "
+            f"max_abs_err {e_fb:.4g}")
+        check(e_fb == 0, f"roi_window f32 and bf16 maps differ by {e_fb}")
+        return got, err
+
+    # B2: 2 frames x 300 proposals x 7x7 from (350, 400, 32) f32 maps, and
+    # the Stack model's 4 frames (data_stride 3) at the same sizes
+    maps4, boxes4 = bev_crop_inputs(g, 4, dev)
+    check_window(maps4, boxes4)
+    del maps4, boxes4
     maps, boxes = inp["maps"], inp["boxes"]
-    got = roi_window.crop_and_resize_window(maps, boxes, 7)
-    maps_bf = maps.to(torch.bfloat16)
-    got_bf = roi_window.crop_and_resize_window(maps_bf, boxes, 7)
-    for what, crop, m_in in (("f32", got, maps), ("bf16", got_bf, maps_bf)):
-        want = roi_window.crop_and_resize_window_plain(m_in, boxes, 7)
-        e, scale = rel_err(crop, want)
-        # the kernel rounds each tap to bf16 (the twin casts the map) and
-        # blends in the twin's f32 arithmetic without fused multiply-
-        # adds: equal, and within one bf16 rounding at worst
-        log(f"B2 roi_window (2, 300, 7, 7, 32) on {what} maps: max_abs_err "
-            f"vs twin {e:.4g} (max |ref| {scale:.4g})")
-        check(e <= 1e-2 * scale, f"roi_window on {what} maps disagrees with "
-              f"its twin: {e}")
-        if what == "f32":
-            err = e
-    # a tap rounded to bf16 is the bf16 map's tap: the two crops are equal
-    e_fb = rel_err(got, got_bf)[0]
-    log(f"B2 crop of the f32 maps vs crop of their bf16 cast: max_abs_err "
-        f"{e_fb:.4g}")
-    check(e_fb == 0, f"roi_window f32 and bf16 maps differ by {e_fb}")
+    got, err = check_window(maps, boxes)
     # ROIs that fit their window: the window crop equals the gather crop
     # up to the bf16 rounding of the taps
     gather = torch.stack([roi.crop_and_resize_gather(m, b, 7)
@@ -432,7 +478,7 @@ def kernel_checks(dev):
     res["roi_window"]["bound_ms"], res["roi_window"]["bound_by"] = bound(
         9 * got.numel(), PEAK_F32,
         int(tapped.sum()) * 32 * 4 + nbytes(boxes, got))
-    del gather, lib, maps_bf, got_bf
+    del gather, lib
 
     # B3: correlation (d = 5, 121 displacements) + (121, 1) bottleneck
     a, b, w = inp["a"], inp["b"], inp["w"]
@@ -1251,21 +1297,26 @@ def write_eval_fixture(root, speeds, n_frames):
     return scenes
 
 
-def eval_dataset(cfg, scenes):
-    """The port's KittiTrackingDataset (val split) over write_eval_fixture's
-    files, its camera images the scenes' flat gray cards resized with
-    numpy: a constant image resizes exactly, so the samples are the ones
-    cv2 would give from the PNGs."""
+def flat_card(img, image_shape):
+    """(original (H, W), the resized image) of a constant camera image,
+    resized with numpy: a constant image resizes exactly, as cv2 would."""
+    check(bool((img == img[0, 0]).all()),
+          "the fixture's camera image is not constant")
+    ih, iw = image_shape
+    return img.shape[:2], np.broadcast_to(img[0, 0], (ih, iw, 3)).copy()
+
+
+def eval_dataset(cfg, scenes, base=None):
+    """The port's KittiTrackingDataset (or ``base``, a subclass such as
+    KittiTrackingStackDataset; val split) over write_eval_fixture's
+    files, its camera images the scenes' flat gray cards (flat_card), so
+    the samples are the ones cv2 would give from the PNGs."""
     from dodt_tpu_torch.data.tracking import KittiTrackingDataset
 
-    class CardImages(KittiTrackingDataset):
+    class CardImages(base or KittiTrackingDataset):
         def _camera_image(self, video_id, frame):
-            img = scenes[video_id].image_at(frame)
-            check(bool((img == img[0, 0]).all()),
-                  "the fixture's camera image is not constant")
-            ih, iw = self.cfg.image_shape
-            return img.shape[:2], np.broadcast_to(img[0, 0],
-                                                  (ih, iw, 3)).copy()
+            return flat_card(scenes[video_id].image_at(frame),
+                             self.cfg.image_shape)
     return CardImages(cfg.dataset, split="val")
 
 
@@ -1469,11 +1520,8 @@ def eval_cuda_vs_cpu(dev):
     work = os.path.join(ROOT, "build", "smoke_eval_small")
     shutil.rmtree(work, ignore_errors=True)
     scenes = write_eval_fixture(os.path.join(work, "kitti"), (0.5,), 7)
-    cfg = eval_cfg(small_cfg(), os.path.join(work, "kitti"))
+    cfg = small_plain_cfg(eval_cfg(small_cfg(), os.path.join(work, "kitti")))
     cfg.dataset.data_stride = 3
-    cfg.model.tower_dtype = "float32"
-    for ext in (cfg.model.bev_extractor, cfg.model.img_extractor):
-        ext.fused_interior = ()
     clusters = ((3.9, 1.6, 1.52),)
     model = DtAvodNet(cfg, clusters)
     init_params(model, torch.Generator().manual_seed(5))
@@ -1490,12 +1538,27 @@ def eval_cuda_vs_cpu(dev):
         frame_files, _ = check_eval_outputs(res[name],
                                             os.path.join(work, name),
                                             ev.dataset, keys)
-        files[name] = {
-            fn: np.array([[float(v) for v in ln.split()[8:15]] for ln in
-                          open(os.path.join(work, name, "predictions_1",
-                                            "data", fn)).read().splitlines()
-                          ]).reshape(-1, 7)
-            for fn in frame_files}
+        files[name] = {fn: read_boxes(os.path.join(
+            work, name, "predictions_1", "data", fn)) for fn in frame_files}
+    exact = compare_eval_runs(files, res)
+    shutil.rmtree(work, ignore_errors=True)
+    return exact
+
+
+def read_boxes(path):
+    """(n, 7) h w l x y z ry of a KITTI prediction file."""
+    with open(path) as f:
+        return np.array([[float(v) for v in ln.split()[8:15]]
+                         for ln in f.read().splitlines()]).reshape(-1, 7)
+
+
+def compare_eval_runs(files, res):
+    """Phase 10's rule over the card's and the CPU's prediction files
+    ({"cuda"|"cpu": {file name: read_boxes}}) and results: per file,
+    counts within max(2, 10%) and 80% of the boxes matched within 0.1;
+    AP (and MOT) equal to 1e-6 when every box is matched within 2e-3
+    with equal counts. Returns whether they all were."""
+    import torch
     check(files["cuda"].keys() == files["cpu"].keys(), "frame files differ")
 
     def boxes(rows):
@@ -1537,6 +1600,482 @@ def eval_cuda_vs_cpu(dev):
         f"{len(pairs)} AP and MOT numbers, differing: {differ}")
     if exact:
         check(not differ, f"AP/MOT differ on matched detections: {differ}")
+    return exact
+
+
+# ---------------------------------------------------------------- phase 11
+
+DETECTION_SAMPLES = 8          # the object fixture's samples (one scene)
+STAGE_STEPS = (3, 2, 1)        # single-frame pretrain, staged, finetune
+STACK_TRAIN_STEPS = 2
+FRAME_KEYS = ("points", "points_valid", "image", "gt_boxes", "gt_classes",
+              "gt_valid", "gt_track_ids")
+
+
+def one_frame(batch):
+    """Frame 0 of a couple batch as a single-frame sample in the keys
+    KittiDataset gives (no correlation targets: zeros)."""
+    out = {k: v[:, :1] for k, v in batch.items() if k in FRAME_KEYS}
+    out.update({k: batch[k] for k in ("ground_plane", "p2",
+                                      "orig_image_shape")})
+    if "corr_offsets" in batch:
+        out["corr_offsets"] = np.zeros_like(batch["corr_offsets"])
+        out["corr_coexist"] = np.zeros_like(batch["corr_coexist"])
+    return out
+
+
+class FrameStream(SmokeStream):
+    """SmokeStream's couples, frame 0 only: an in-memory single-frame
+    dataset for the Trainer."""
+
+    def next_batch(self, batch_size, augment=True):
+        return one_frame(super().next_batch(batch_size, augment))
+
+
+def write_detection_eval_fixture(root, n_samples):
+    """The port's write_detection_fixture for one scene of n_samples
+    frames (4 cars, seed 0), without the PNGs. Returns the scene, whose
+    images detection_dataset serves."""
+    from dodt_tpu_torch.data import synthetic
+    synthetic.write_detection_fixture(root, n_samples, images=False)
+    return synthetic.SyntheticScene(0, n_samples, seed=0, ego_speed=0.0)
+
+
+def detection_dataset(cfg, scene):
+    """The port's KittiDataset (val split) over
+    write_detection_eval_fixture's files, its camera images the scene's
+    flat gray cards (flat_card)."""
+    from dodt_tpu_torch.data.detection import KittiDataset
+
+    class CardImages(KittiDataset):
+        def _camera_image(self, name):
+            return flat_card(scene.image_at(int(name)), self.cfg.image_shape)
+    return CardImages(cfg.dataset, split="val")
+
+
+def timed_forward(model, batch, counters, check_out):
+    """The val-mode forward of one host batch on the card: the kernels'
+    launches in its first call (counters zeroed just before), then the
+    median of N_TIMED calls after N_WARM, each synced."""
+    import torch
+    dev = next(model.parameters()).device
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    for c in counters:
+        c.launches = 0
+    out = model(tb)
+    torch.cuda.synchronize()
+    launches = {c.symbol: c.launches for c in counters}
+    check_out(out)
+    for _ in range(N_WARM):
+        model(tb)
+    times = []
+    for _ in range(N_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(tb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check_out(out)
+    return float(np.median(times)), launches, out
+
+
+def check_finals(out, shapes):
+    import torch
+    for key, shape in shapes.items():
+        v = out[key]
+        check(tuple(v.shape) == shape, f"{key} shape {tuple(v.shape)}")
+        if v.dtype != torch.bool:
+            check(bool(torch.isfinite(v).all()), f"{key} not finite")
+
+
+def train_run(cfg, model, stream, ckpt, steps, counters):
+    """Trainer.train to ``steps`` (from the step its state starts at) on
+    the card, the kernels' counters zeroed just before: (state, history,
+    step ms after the first, launches)."""
+    import torch
+    from dodt_tpu_torch.runtime.trainer import Trainer
+    cfg.train.checkpoint_interval = 10 ** 6       # only the last step
+    trainer = Trainer(cfg, model, stream, ckpt, metrics_path=None)
+    for c in counters:
+        c.launches = 0
+    state, history = trainer.train(max_steps=steps, log_every=1)
+    torch.cuda.synchronize()
+    launches = {c.symbol: c.launches for c in counters}
+    check(state.step == steps and trainer.ckpt.all_steps()[-1] == steps,
+          f"{ckpt}: the trainer ended at step {state.step}")
+    for h in history:
+        bad = [k for k, v in h.items() if not np.isfinite(v)]
+        check(not bad, f"{ckpt} step {h['step']}: {bad} not finite")
+    log(f"{os.path.basename(ckpt)}: " + "; ".join(
+        f"step {h['step']} " + ", ".join(f"{k} {v:.4g}" for k, v in h.items()
+                                         if k not in ("step", "wall_s"))
+        for h in history))
+    steps_ms = np.diff([0.0] + [h["wall_s"] for h in history]) * 1e3
+    return state, history, [float(s) for s in steps_ms], launches
+
+
+def staged_flow(dev, counters):
+    """The reference's staged training recipe at full width (65536
+    points) through Trainer and Evaluator, each stage's checkpoint the
+    next one's source:
+
+    1. cars_single_frame: DtAvodNet(num_frames=1) trains STAGE_STEPS[0]
+       steps on FrameStream (init_params, rpn_reg's output layer scaled
+       by 1e-2 as in phase 7); its single-frame forward is timed and its
+       checkpoint evaluated (detection-only: AP, no MOT) on
+       write_detection_eval_fixture's DETECTION_SAMPLES samples, twice
+       (cold, timed), B1 and B2 launched in every forward;
+    2. cars_dt_tracking_staged: the paired model restores the seven
+       DETECTOR_SUBTREES and freezes them; after STAGE_STEPS[1] steps
+       every detector tensor equals stage 1's bit for bit, and both
+       correlation subtrees moved;
+    3. cars_dt_tracking_finetune: the full state continues one step and
+       a detector tensor moves.
+    Returns the numbers printed at the end."""
+    import shutil
+    import torch
+    from dodt_tpu_torch import config as C
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+    from dodt_tpu_torch.runtime.trainer import CheckpointIO, top_level
+
+    work = os.path.join(ROOT, "build", "smoke_staged")
+    shutil.rmtree(work, ignore_errors=True)
+    pre_dir, staged_dir, ft_dir = (os.path.join(work, s) for s in (
+        "pretrain", "staged", "finetune"))
+    clusters = DEFAULT_CAR_CLUSTERS
+    detector = set(C.DETECTOR_SUBTREES)
+
+    # ---- stage 1: the single-frame detector
+    cfg1 = C.cars_single_frame()
+    cfg1.dataset.max_points = 65536
+    model1 = DtAvodNet(cfg1, clusters, num_frames=1)
+    init_params(model1, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model1.rpn_reg.out.weight.mul_(1e-2)
+    check({top_level(k) for k in model1.state_dict()} == detector,
+          "the one-frame model's parameters are not the detector's")
+    state1, hist1, steps1, train1 = train_run(
+        cfg1, model1, FrameStream(cfg1, 11), pre_dir, STAGE_STEPS[0],
+        counters)
+    check(all(h["corr"] == 0.0 for h in hist1),
+          "the single-frame model has a correlation loss")
+    model1.load_state_dict(state1.params)
+    model1.eval()
+    k_final = cfg1.model.avod.nms_size
+
+    def check_one_frame(out):
+        check_finals(out, {"final_boxes_3d": (1, 1, k_final, 7),
+                           "final_scores": (1, 1, k_final)})
+        check("corr_pred" not in out, "the one-frame forward correlated")
+    fwd_ms, fwd_launches, _ = timed_forward(
+        model1, one_frame(train_batch(cfg1, np.random.RandomState(12))),
+        counters, check_one_frame)
+    log(f"single-frame forward: {fwd_ms:.3f} ms (median of {N_TIMED}), "
+        f"launches {fwd_launches}")
+    b1, b2, b3 = (fwd_launches[c.symbol] for c in counters)
+    check(b1 > 0 and b2 > 0, "the single-frame eval forward did not launch "
+          "B1 and B2")
+    check(b3 == 0, "the single-frame forward launched B3")
+
+    scene = write_detection_eval_fixture(os.path.join(work, "kitti_object"),
+                                         DETECTION_SAMPLES)
+    cfg_e = C.cars_single_frame()
+    cfg_e.dataset.max_points = 65536
+    cfg_e.dataset.dataset_dir = os.path.join(work, "kitti_object")
+    ds = detection_dataset(cfg_e, scene)
+    ev = Evaluator(cfg_e, DtAvodNet(cfg_e, clusters, num_frames=1), ds,
+                   pre_dir, os.path.join(work, "eval_object"))
+    n_fwd = -(-len(ds) // max(cfg_e.eval.batch_size, 1))
+    runs = []
+    for run in ("cold", "timed"):
+        for c in counters:
+            c.launches = 0
+        ev.stage_seconds.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = ev.run_checkpoint_once()
+        wall = time.perf_counter() - t0
+        launches = {c.symbol: c.launches for c in counters}
+        log(f"detection eval ({run}): {len(ds)} samples in {wall:.3f} s, "
+            f"stages {dict(ev.stage_seconds)}, launches {launches}")
+        for sym, k in fwd_launches.items():
+            check(launches[sym] == k * n_fwd,
+                  f"{sym}: {launches[sym]} launches in {n_fwd} forwards")
+        runs.append((wall, dict(ev.stage_seconds), launches))
+    check(set(results) == {"step", "ap", "ap_per_class", "ap_05_per_class"},
+          f"detection results keys {sorted(results)}")
+    bad = [(p, v) for p, v in numbers(results) if not np.isfinite(v)]
+    check(not bad, f"detection results not finite: {bad}")
+    files = sorted(os.listdir(os.path.join(work, "eval_object",
+                                           f"predictions_{STAGE_STEPS[0]}",
+                                           "data")))
+    check(files == [f"{n}.txt" for n in ds.sample_names],
+          f"detection prediction files {files}")
+    log(f"detection eval: AP_3D {results['ap']['AP_3D']}")
+
+    # ---- stage 2: the paired model, detector restored and frozen
+    cfg2 = C.cars_dt_tracking_staged(pre_dir)
+    cfg2.dataset.max_points = 65536
+    model2 = DtAvodNet(cfg2, clusters)
+    init_params(model2, torch.Generator().manual_seed(1))
+    corr0 = {k: v.clone() for k, v in model2.state_dict().items()
+             if top_level(k) not in detector}
+    state2, _, steps2, train2 = train_run(
+        cfg2, model2, SmokeStream(cfg2, 7), staged_dir, STAGE_STEPS[1],
+        counters)
+    pre = CheckpointIO(pre_dir).restore_params()
+    same = [k for k in pre if torch.equal(state2.params[k].cpu(), pre[k])]
+    check(len(same) == len(pre) == sum(top_level(k) in detector
+                                       for k in state2.params),
+          f"frozen detector tensors changed: {sorted(set(pre) - set(same))}")
+    moved = {}
+    for k, v in corr0.items():
+        d = float((state2.params[k].cpu() - v).abs().max())
+        moved[top_level(k)] = max(moved.get(top_level(k), 0.0), d)
+    log(f"staged: {len(same)} detector tensors bit-equal to the pretrain, "
+        f"correlation branch moved by {moved}")
+    check(set(moved) == {"bev_corr_bottleneck", "corr_fc"}
+          and all(v > 0 for v in moved.values()),
+          f"the correlation branch did not train: {moved}")
+
+    # ---- stage 3: joint finetune from the staged full state
+    cfg3 = C.cars_dt_tracking_finetune(staged_dir)
+    cfg3.dataset.max_points = 65536
+    state3, _, steps3, _ = train_run(
+        cfg3, DtAvodNet(cfg3, clusters), SmokeStream(cfg3, 8), ft_dir,
+        STAGE_STEPS[1] + STAGE_STEPS[2], counters)
+    det_moved = max(float((state3.params[k] - state2.params[k]).abs().max())
+                    for k in pre)
+    log(f"finetune: step {state3.step}, detector moved by {det_moved:.4g}")
+    check(det_moved > 0, "the finetune did not move the detector")
+    shutil.rmtree(work, ignore_errors=True)
+    wall, stages, launches = runs[-1]
+    return {"forward_ms": fwd_ms, "forward_launches": fwd_launches,
+            "samples": len(ds), "eval_wall_s": wall,
+            "eval_cold_wall_s": runs[0][0], "eval_stages": stages,
+            "eval_launches": launches,
+            "step_ms": {"pretrain": steps1, "staged": steps2,
+                        "finetune": steps3},
+            "train_launches": {"pretrain": train1, "staged": train2}}
+
+
+# ---------------------------------------------------------------- phase 12
+
+STACK_FRAMES = 4               # cars_dt_tracking(data_stride=3)
+
+
+def stack_batch(batch, frames=STACK_FRAMES):
+    """A couple batch (train_batch's or make_batch's) as an N-frame stack
+    in the keys KittiTrackingStackDataset gives: the couple's frames in
+    turn, GT per frame, frame 0's GT as the merged (hull) boxes, every
+    track in both keyframes with the couple's corr_offsets as motion."""
+    idx = [i % 2 for i in range(frames)]
+    out = {k: v[:, idx] for k, v in batch.items() if k in FRAME_KEYS}
+    out.update({k: batch[k] for k in ("ground_plane", "p2",
+                                      "orig_image_shape")})
+    if "gt_boxes" in batch:
+        out.update({"merged_boxes": batch["gt_boxes"][:, 0],
+                    "merged_classes": batch["gt_classes"][:, 0],
+                    "merged_valid": batch["gt_valid"][:, 0],
+                    "coexist": np.zeros(batch["gt_valid"][:, 0].shape,
+                                        np.float32),
+                    "corr_offsets": batch["corr_offsets"]})
+    return out
+
+
+class StackStream(SmokeStream):
+    """SmokeStream's couples as STACK_FRAMES-frame stacks."""
+
+    def next_batch(self, batch_size, augment=True):
+        return stack_batch(super().next_batch(batch_size, augment))
+
+
+def stack_full_width(dev, counters):
+    """The Stack model at full width: cars_dt_tracking(data_stride=3)
+    with model_name stack_avod_model (4 frames), 65536 points, random
+    weights (init_params, rpn_reg's output layer scaled by 1e-2). Its
+    val-mode forward (B1 and B2 must launch), STACK_TRAIN_STEPS Trainer
+    steps on StackStream (compute_stack_losses through loss_builder;
+    B1 and B2 must not launch), and one run_checkpoint_once of that
+    checkpoint over phase 9's tracking fixture read through
+    KittiTrackingStackDataset, val_health on: every result key and
+    finite number, every frame and couple file, B1 and B2 launched per
+    forward as in the timed one."""
+    import shutil
+    import torch
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.data.stack import KittiTrackingStackDataset
+    from dodt_tpu_torch.models.dt_avod import init_params
+    from dodt_tpu_torch.models.stack import StackAvodNet
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+
+    def stack_cfg():
+        cfg = cars_dt_tracking(data_stride=STACK_FRAMES - 1)
+        cfg.model.model_name = "stack_avod_model"
+        cfg.dataset.max_points = 65536
+        return cfg
+
+    work = os.path.join(ROOT, "build", "smoke_stack")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = stack_cfg()
+    model = StackAvodNet(cfg, DEFAULT_CAR_CLUSTERS)
+    init_params(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.rpn_reg.out.weight.mul_(1e-2)
+    model.to(dev).eval()
+    k, k_final = cfg.model.rpn.test_nms_size, cfg.model.avod.nms_size
+    fwd_ms, fwd_launches, out = timed_forward(
+        model, stack_batch(train_batch(cfg, np.random.RandomState(13))),
+        counters, lambda out: check_finals(out, {
+            "top_anchors": (1, k, 6),
+            "final_boxes_3d": (1, STACK_FRAMES, k_final, 7),
+            "final_scores": (1, STACK_FRAMES, k_final),
+            "final_coexist": (1, k_final),
+            "final_corr_offsets": (1, k_final, 3)}))
+    log(f"Stack forward: {fwd_ms:.3f} ms (median of {N_TIMED}), "
+        f"{out['anchors'].shape[1]} anchors, valid finals per frame "
+        f"{out['final_valid'].sum(-1).tolist()}, launches {fwd_launches}")
+    b1, b2, b3 = (fwd_launches[c.symbol] for c in counters)
+    check(b1 > 0 and b2 > 0, "the Stack eval forward did not launch B1 "
+          "and B2")
+    check(b3 == 0, "the Stack forward launched B3")
+
+    model.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ckpt = os.path.join(work, "ckpt")
+    state, history, steps_ms, train_launches = train_run(
+        cfg, model, StackStream(cfg, 14), ckpt, STACK_TRAIN_STEPS, counters)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    check("coexist" in history[-1], "the Trainer did not take the Stack "
+          "losses")
+    check(all(v == 0 for v in train_launches.values()),
+          f"a kernel ran in Stack training: {train_launches}")
+    log(f"Stack training: step ms {steps_ms}, peak device memory "
+        f"{peak:.0f} MiB")
+
+    scenes = write_eval_fixture(os.path.join(work, "kitti"), EVAL_SPEEDS,
+                                EVAL_FRAMES)
+    cfg_e = eval_cfg(stack_cfg(), os.path.join(work, "kitti"))
+    cfg_e.eval.val_health = True
+    ds = eval_dataset(cfg_e, scenes, KittiTrackingStackDataset)
+    ev = Evaluator(cfg_e, StackAvodNet(cfg_e, DEFAULT_CAR_CLUSTERS), ds,
+                   ckpt, os.path.join(work, "out"))
+    n = len(ds.couples)
+    n_fwd = -(-n // max(cfg_e.eval.batch_size, 1))
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = ev.run_checkpoint_once()
+    wall = time.perf_counter() - t0
+    launches = {c.symbol: c.launches for c in counters}
+    check_eval_outputs(results, os.path.join(work, "out"), ds, RESULT_KEYS)
+    for sym, per in fwd_launches.items():
+        check(launches[sym] == per * n_fwd,
+              f"{sym}: {launches[sym]} launches in {n_fwd} Stack forwards")
+    mot = results["mot"]["overall"]
+    log(f"Stack evaluate: {n} stacks in {wall:.3f} s, stages "
+        f"{dict(ev.stage_seconds)}, launches {launches}, AP_3D "
+        f"{results['ap']['AP_3D']}, overall MOTA {mot['MOTA']:.4g}, "
+        f"val_health {results['val_health']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"forward_ms": fwd_ms, "forward_launches": fwd_launches,
+            "step_ms": steps_ms, "peak_mib": peak, "stacks": n,
+            "eval_wall_s": wall, "eval_launches": launches}
+
+
+# ---------------------------------------------------------------- phase 13
+
+def small_plain_cfg(cfg=None):
+    """small_cfg (or cfg) in f32 with plain convolutions (B1 takes bf16
+    only; phase 6 holds it against the CPU)."""
+    cfg = cfg or small_cfg()
+    cfg.model.tower_dtype = "float32"
+    for ext in (cfg.model.bev_extractor, cfg.model.img_extractor):
+        ext.fused_interior = ()
+    return cfg
+
+
+def hold_finals(og, oc, what):
+    """Phase 6's rule per frame row of (B, F, K, ...) final outputs:
+    counts within max(2, 10%), 80% of the boxes matched within 0.1."""
+    for b in range(og["final_valid"].shape[0]):
+        for f in range(og["final_valid"].shape[1]):
+            vg = og["final_valid"][b, f].cpu()
+            vc = oc["final_valid"][b, f]
+            fin = matched_fraction(og["final_boxes_3d"][b, f],
+                                   oc["final_boxes_3d"][b, f], vg, vc, 0.1)
+            log(f"{what} sample {b} frame {f}: valid finals cuda "
+                f"{int(vg.sum())} cpu {int(vc.sum())}, final boxes matched "
+                f"{fin:.3f}")
+            check(abs(int(vg.sum()) - int(vc.sum())) <= max(2, vc.sum() // 10),
+                  f"{what} {b}/{f}: valid final counts differ")
+            check(fin >= 0.8, f"{what} {b}/{f}: final boxes matched {fin}")
+
+
+def new_families_cuda_vs_cpu(dev):
+    """The one-frame and the Stack forward of the small config (f32,
+    plain convolutions) on the card against the CPU with the same
+    weights, held to phase 6's rule; then the detection-only evaluation
+    of the one-frame model (write_detection_eval_fixture, 4 samples) on
+    the card and on the CPU from one checkpoint, held to phase 10's
+    rule. Returns whether every box matched within 2e-3."""
+    import copy
+    import shutil
+    import torch
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+    from dodt_tpu_torch.models.stack import StackAvodNet
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+    from dodt_tpu_torch.runtime.trainer import (CheckpointIO,
+                                                create_train_state)
+
+    clusters = ((3.9, 1.6, 1.52),)
+    couples = [make_batch(small_cfg(), np.random.RandomState(s))
+               for s in (1, 2)]
+    for what, model_cls, kw, make in (
+            ("one-frame forward", DtAvodNet, {"num_frames": 1}, one_frame),
+            ("Stack forward", StackAvodNet, {}, stack_batch)):
+        cfg = small_plain_cfg()
+        cfg.dataset.data_stride = STACK_FRAMES - 1
+        cpu_model = model_cls(cfg, clusters, **kw)
+        init_params(cpu_model, torch.Generator().manual_seed(1))
+        cpu_model.eval()
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        parts = [make(c) for c in couples]
+        host = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        og = gpu_model({k: torch.as_tensor(v, device=dev)
+                        for k, v in host.items()})
+        oc = cpu_model({k: torch.as_tensor(v) for k, v in host.items()})
+        check(set(og) == set(oc), f"{what}: keys differ")
+        check(torch.equal(og["anchor_valid"].cpu(), oc["anchor_valid"]),
+              f"{what}: anchor_valid differs")
+        hold_finals(og, oc, what)
+
+    work = os.path.join(ROOT, "build", "smoke_eval_object")
+    shutil.rmtree(work, ignore_errors=True)
+    scene = write_detection_eval_fixture(os.path.join(work, "kitti"), 4)
+    cfg = small_plain_cfg()
+    cfg.model.model_name = "avod_model"
+    cfg.dataset.dataset_dir = os.path.join(work, "kitti")
+    model = DtAvodNet(cfg, clusters, num_frames=1)
+    init_params(model, torch.Generator().manual_seed(5))
+    ckpt = os.path.join(work, "ckpt")
+    CheckpointIO(ckpt).save(1, create_train_state(cfg, model))
+    res, files = {}, {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        ev = Evaluator(cfg, copy.deepcopy(model), detection_dataset(
+            cfg, scene), ckpt, os.path.join(work, name), device=d)
+        res[name] = ev.run_checkpoint_once()
+        data = os.path.join(work, name, "predictions_1", "data")
+        files[name] = {fn: read_boxes(os.path.join(data, fn))
+                       for fn in sorted(os.listdir(data))}
+        check(sorted(files[name]) == [f"{n}.txt" for n in
+                                      ev.dataset.sample_names],
+              f"{name} detection files {sorted(files[name])}")
+    exact = compare_eval_runs(files, res)
     shutil.rmtree(work, ignore_errors=True)
     return exact
 
@@ -1652,6 +2191,12 @@ def main():
         log("phase 9: full-width evaluation of phase 7's checkpoint ran")
         eval_exact = eval_cuda_vs_cpu(dev)
         log("phase 10: CUDA evaluation agrees with the CPU evaluation")
+        staged = staged_flow(dev, counters)
+        log("phase 11: the staged training flow ran at full width")
+        stack = stack_full_width(dev, counters)
+        log("phase 12: the Stack model ran at full width")
+        families_exact = new_families_cuda_vs_cpu(dev)
+        log("phase 13: the one-frame and Stack models agree with the CPU")
     except PhaseError as exc:
         return fail(str(exc))
     except Exception as exc:                 # a build or launch error
@@ -1685,6 +2230,30 @@ def main():
           f"{ev['wall_s']:.4f} on {card}")
     print(f"eval card vs CPU (small config): every box matched within "
           f"2e-3, AP and MOT held equal: {eval_exact}")
+    print(f"single-frame forward ms (median of {N_TIMED}, full width, "
+          f"B = 1): {staged['forward_ms']:.4f} on {card}")
+    st = staged["eval_stages"]
+    print(f"detection eval samples/s (full width, {staged['samples']} "
+          f"samples, run_checkpoint_once): "
+          f"{staged['samples'] / staged['eval_wall_s']:.4f}; cold run "
+          f"{staged['samples'] / staged['eval_cold_wall_s']:.4f} on {card}")
+    print("detection eval seconds: " + ", ".join(
+        f"{k} {st[k]:.4f}" for k in ("load", "forward", "write", "ap"))
+          + f", other {staged['eval_wall_s'] - sum(st.values()):.4f}, wall "
+          f"{staged['eval_wall_s']:.4f} on {card}")
+    print("staged flow step ms: " + "; ".join(
+        f"{k} {[round(s, 2) for s in v]}"
+        for k, v in staged["step_ms"].items()) + f" on {card}")
+    print(f"Stack forward ms (median of {N_TIMED}, full width, B = 1, "
+          f"{STACK_FRAMES} frames): {stack['forward_ms']:.4f} on {card}")
+    print(f"Stack train step ms ({STACK_TRAIN_STEPS} steps, the first "
+          f"included): {[round(s, 2) for s in stack['step_ms']]}, peak "
+          f"device memory {stack['peak_mib']:.0f} MiB on {card}")
+    print(f"Stack eval stacks/s (full width, {stack['stacks']} stacks, "
+          f"with val_health): {stack['stacks'] / stack['eval_wall_s']:.4f} "
+          f"on {card}")
+    print(f"one-frame and Stack card vs CPU (small config): every detection "
+          f"box matched within 2e-3, AP held equal: {families_exact}")
     for line in kernel_lines(kern, card):
         print(line)
     # launches in each path's run, and per keyframe (pushes, the first of
@@ -1698,7 +2267,17 @@ def main():
         "per_train_step": train_launches[k.symbol] / TRAIN_STEPS,
         "evaluate_run": ev["launches"][k.symbol],
         "evaluate": ev["launches"][k.symbol] / ev["couples"],
-        "evaluate_forwards": ev["forward_launches"][k.symbol]}
+        "evaluate_forwards": ev["forward_launches"][k.symbol],
+        "single_frame_forward": staged["forward_launches"][k.symbol],
+        "per_single_frame_sample": staged["eval_launches"][k.symbol]
+        / staged["samples"],
+        "single_frame_train_step": staged["train_launches"]["pretrain"][
+            k.symbol] / STAGE_STEPS[0],
+        "staged_train_step": staged["train_launches"]["staged"][k.symbol]
+        / STAGE_STEPS[1],
+        "stack_forward": stack["forward_launches"][k.symbol],
+        "per_stack_evaluated": stack["eval_launches"][k.symbol]
+        / stack["stacks"]}
         for k in counters}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
         "correlation_op": op_launches,

@@ -8,9 +8,7 @@ the ground, full KITTI file layout (velodyne .bin, image_02 .png,
 calib, label_02, oxts, planes). This exercises every reader/transform
 with data we fully control (known motion -> known correlation offsets).
 
-The port's copy of dodt_tpu/data/synthetic.py, without the single-frame
-fixture writer (``write_detection_fixture``), which waits for the
-single-frame dataset.
+The port's copy of dodt_tpu/data/synthetic.py.
 """
 from __future__ import annotations
 
@@ -487,3 +485,86 @@ def write_tracking_fixture(root: str, num_videos: int = 2,
             f.write(split_text)
     return root
 
+
+def write_detection_fixture(root: str, num_frames: int = 6,
+                            seed: int = 0, num_scenes: int = 1,
+                            num_cars: int = 4,
+                            points_per_car: int = 384,
+                            ground_points: int = 3000,
+                            scan: str = "surface",
+                            render_images: bool = False,
+                            images: bool = True) -> str:
+    """Write a synthetic single-frame KITTI *object* dataset under
+    `root` (velodyne/image_2/calib/label_2/planes + split txts).
+    `images=False` leaves out image_2 and its PNGs (and needs no cv2),
+    for a reader that serves the camera images itself
+    (`KittiDataset._camera_image`).
+
+    `num_scenes` independent scenes each contribute `num_frames`
+    samples; the scene-statistics knobs (`num_cars`,
+    `points_per_car`, `ground_points`) mirror
+    `write_tracking_fixture` so a single-frame pretrain set can be
+    parameter-matched to a tracking fixture (the reference's staged
+    flow pretrains the detector on the SAME data distribution the DT
+    stage sees, trainer.py:64-183 — a mismatched pretrain caps the
+    transferred AP)."""
+    base = os.path.join(root, "training")
+    for sub in ("velodyne", "image_2", "calib", "label_2", "planes"):
+        if images or sub != "image_2":
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+
+    names = []
+    for sid in range(num_scenes):
+        scene = SyntheticScene(sid, num_frames, seed=seed + sid,
+                               ego_speed=0.0, num_cars=num_cars,
+                               points_per_car=points_per_car,
+                               ground_points=ground_points,
+                               scan=scan, render_images=render_images)
+        _write_detection_scene(base, scene, num_frames,
+                               sid * num_frames, names, images)
+
+    for split in ("train", "val", "trainval", "test"):
+        with open(os.path.join(root, split + ".txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root
+
+
+def _write_detection_scene(base, scene, num_frames, name_offset,
+                           names, images=True):
+    for frame in range(num_frames):
+        name = f"{name_offset + frame:06d}"
+        names.append(name)
+        scene.point_cloud_at(frame).tofile(
+            os.path.join(base, "velodyne", name + ".bin"))
+        if images:
+            import cv2
+            cv2.imwrite(os.path.join(base, "image_2", name + ".png"),
+                        scene.image_at(frame))
+        with open(os.path.join(base, "calib", name + ".txt"), "w") as f:
+            f.write(_calib_text())
+        with open(os.path.join(base, "planes", name + ".txt"), "w") as f:
+            f.write("# Plane\nWidth 4\nHeight 1\n"
+                    f"0.0 -1.0 0.0 {GROUND_Y}\n")
+        with open(os.path.join(base, "label_2", name + ".txt"),
+                  "w") as f:
+            f.write("\n".join(detection_label_lines(scene, frame)) + "\n")
+
+
+def detection_label_lines(scene, frame: int) -> list:
+    """One frame's single-frame KITTI object labels (no frame or track
+    columns)."""
+    from dodt_tpu_torch.utils.np_iou import box_3d_corners
+    lines = []
+    for cid, box in scene.camera_boxes_at(frame):
+        x, y, z, l, w, h, ry = box
+        uv = _project(box_3d_corners(box))
+        x1, y1 = uv.min(0)
+        x2, y2 = uv.max(0)
+        x1, x2 = np.clip([x1, x2], 0, _IMG_W)
+        y1, y2 = np.clip([y1, y2], 0, _IMG_H)
+        alpha = ry - np.arctan2(x, z)
+        lines.append(
+            f"Car 0.00 0 {alpha:.2f} {x1:.2f} {y1:.2f} {x2:.2f} "
+            f"{y2:.2f} {h:.2f} {w:.2f} {l:.2f} {x:.2f} {y:.2f} "
+            f"{z:.2f} {ry:.2f}")
+    return lines

@@ -1,7 +1,11 @@
-"""Paired-frame DODT detector (PyTorch port of
-dodt_tpu/models/dt_avod.py): the monolithic pair forward ``__call__`` as
-``forward`` in val and train mode, the streaming ``encode_frame`` and
-``pair_stage``, and ``compute_losses``.
+"""DODT detector (PyTorch port of dodt_tpu/models/dt_avod.py): the
+monolithic forward ``__call__`` as ``forward`` in val and train mode, for
+the paired model (``num_frames=2``, with the correlation branch) and the
+single-frame AVOD detector (``num_frames=1``, without it), the streaming
+``encode_frame`` and ``pair_stage``, and ``compute_losses``. Anchor
+geometry on the BEV pixel lattice takes the dense lattice RPN
+(ops/dense_rpn.py); any other takes the per-anchor form (the occupancy
+filter per anchor, BEV ROIs by crop_and_resize).
 
 Module and parameter names follow the Flax tree, so ``convert.py`` maps a
 JAX checkpoint onto ``DtAvodNet.state_dict()`` one to one. Public tensors
@@ -38,7 +42,8 @@ from dodt_tpu_torch.models.backbone import VggPyramid, preprocess_image
 from dodt_tpu_torch.ops import boxes as box_ops
 from dodt_tpu_torch.ops import sampling
 from dodt_tpu_torch.ops.losses import weighted_smooth_l1
-from dodt_tpu_torch.ops.anchors import integral_image_2d, tile_anchors_3d
+from dodt_tpu_torch.ops.anchors import (empty_anchor_mask,
+                                        integral_image_2d, tile_anchors_3d)
 from dodt_tpu_torch.ops.correlation import corr_bottleneck, disp_grid
 from dodt_tpu_torch.ops.dense_rpn import (build_bev_lattice, dense_bev_rois,
                                           dense_empty_anchor_mask)
@@ -140,30 +145,50 @@ def feature_fuse(a: torch.Tensor, b: torch.Tensor, wa, wb,
     return (a + b) / max(div, 1.0)
 
 
-class AvodTrunk(nn.Module):
+class FcTrunk(nn.Module):
+    """Shared FC trunk ``fc0..`` with dropout, one linear ``out{i}`` per
+    output branch. Computes in ``dtype``, returns f32; ``scope`` names
+    the dropout draws."""
+
+    def __init__(self, d_in: int, sizes: Sequence[int],
+                 out_dims: Sequence[int], dtype: torch.dtype,
+                 keep_prob: float, scope: str = "avod_fc"):
+        super().__init__()
+        self.dtype = dtype
+        self.keep_prob = keep_prob
+        self.scope = scope
+        self.n_hidden = len(sizes)
+        for i, s in enumerate(sizes):
+            self.add_module(f"fc{i}", Dense(d_in, s))
+            d_in = s
+        self.n_out = len(out_dims)
+        for i, o in enumerate(out_dims):
+            self.add_module(f"out{i}", Dense(d_in, o))
+
+    def forward(self, h: torch.Tensor, rand: Optional[Rand] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        h = h.to(self.dtype)
+        for i in range(self.n_hidden):
+            h = F.relu(getattr(self, f"fc{i}")(h, self.dtype))
+            h = dropout(h, self.keep_prob, rand, f"{self.scope}.fc{i}")
+        return tuple(getattr(self, f"out{i}")(h, self.dtype)
+                     .to(torch.float32) for i in range(self.n_out))
+
+
+class AvodTrunk(FcTrunk):
     """Second-stage FC trunk, early fusion: fuse (bev, img) ROI
-    features, ``fc0..`` hidden layers, one linear ``out{i}`` per branch.
-    Computes in ``dtype``, returns f32."""
+    features, then ``FcTrunk``."""
 
     def __init__(self, d_in: int, sizes: Sequence[int],
                  out_dims: Sequence[int], fusion_type: str,
                  fusion_method: str, dtype: torch.dtype, keep_prob: float):
-        super().__init__()
         if fusion_type != "early":
             raise NotImplementedError(
                 f"AvodTrunk fusion_type {fusion_type!r}: the port has "
                 "early fusion only")
+        super().__init__(2 * d_in if fusion_method == "concat" else d_in,
+                         sizes, out_dims, dtype, keep_prob)
         self.fusion_method = fusion_method
-        self.dtype = dtype
-        self.keep_prob = keep_prob
-        self.n_hidden = len(sizes)
-        d = 2 * d_in if fusion_method == "concat" else d_in
-        for i, s in enumerate(sizes):
-            self.add_module(f"fc{i}", Dense(d, s))
-            d = s
-        self.n_out = len(out_dims)
-        for i, o in enumerate(out_dims):
-            self.add_module(f"out{i}", Dense(d, o))
 
     def forward(self, bev: torch.Tensor, img: torch.Tensor, wb, wi,
                 rand: Optional[Rand] = None) -> Tuple[torch.Tensor, ...]:
@@ -171,13 +196,9 @@ class AvodTrunk(nn.Module):
         compute dtype as the Flax module does."""
         if isinstance(wb, torch.Tensor):
             wb, wi = wb.to(self.dtype), wi.to(self.dtype)
-        h = feature_fuse(bev.to(self.dtype), img.to(self.dtype), wb, wi,
-                         self.fusion_method)
-        for i in range(self.n_hidden):
-            h = F.relu(getattr(self, f"fc{i}")(h, self.dtype))
-            h = dropout(h, self.keep_prob, rand, f"avod_fc.fc{i}")
-        return tuple(getattr(self, f"out{i}")(h, self.dtype)
-                     .to(torch.float32) for i in range(self.n_out))
+        return super().forward(feature_fuse(
+            bev.to(self.dtype), img.to(self.dtype), wb, wi,
+            self.fusion_method), rand)
 
 
 class GroupNorm1(nn.Module):
@@ -281,6 +302,47 @@ def bev_crop_fn(crop_size: int, window: int, train: bool, map_shape,
         [crop_and_resize(fm, b, crop_size) for fm, b in zip(maps, bx)])
 
 
+def tower_forward(remat: bool, tower: VggPyramid, x: torch.Tensor,
+                  fused: bool) -> torch.Tensor:
+    """A tower in f32 out; ``remat`` recomputes its activations in the
+    backward (the JAX model's nn.remat, dt_avod.py:283-288)."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        y = checkpoint(tower, x, fused, use_reentrant=False)
+    else:
+        y = tower(x, fused)
+    return y.to(torch.float32)
+
+
+def anchor_valid_mask(cfg: PipelineConfig, lattice, occupancy: torch.Tensor,
+                      anchors: torch.Tensor) -> torch.Tensor:
+    """(N,) anchors over at least density_threshold occupied cells of
+    one (X, Z) occupancy grid: the lattice's strided form, or per anchor
+    (N, 6) off the lattice."""
+    ku = cfg.dataset.kitti_utils
+    integral = integral_image_2d(occupancy)
+    if lattice is not None:
+        return dense_empty_anchor_mask(integral, lattice,
+                                       ku.density_threshold)
+    return empty_anchor_mask(integral, anchors, ku.bev_extents,
+                             ku.voxel_size, ku.density_threshold)
+
+
+def bev_anchor_rois(cfg: PipelineConfig, lattice, bev_bottle: torch.Tensor,
+                    anchors: torch.Tensor) -> torch.Tensor:
+    """Every anchor's RPN BEV ROI over (M, H, W, C) maps, (M, N, S*S*C):
+    the lattice's gather-free crops, or off the lattice crop_and_resize
+    of the anchors' (M, N, 6) BEV boxes in y-x order."""
+    m, n = anchors.shape[0], anchors.shape[1]
+    if lattice is not None:
+        rois = [dense_bev_rois(fm, lattice) for fm in bev_bottle]
+    else:
+        _, norm = project_to_bev(anchors, cfg.dataset.kitti_utils.bev_extents)
+        rois = [crop_and_resize(fm, bx, cfg.model.rpn.proposal_roi_crop_size)
+                for fm, bx in zip(bev_bottle, reorder_boxes_yx(norm))]
+    return torch.stack(rois).reshape(m, n, -1)
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     """take_along_axis with idx broadcast over x's trailing dims."""
     extra = x.dim() - idx.dim()
@@ -319,14 +381,18 @@ _EVAL = _TrainCtx()
 
 
 class DtAvodNet(nn.Module):
-    """Paired-frame AVOD with correlation head: the monolithic pair
-    forward (val and train mode) and the streaming interface."""
+    """AVOD over ``num_frames`` frames per sample: the paired model (2,
+    with the correlation head) or the single-frame detector (1, without
+    it); the monolithic forward (val and train mode) and, for the pair,
+    the streaming interface."""
 
     def __init__(self, cfg: PipelineConfig,
-                 cluster_sizes: Tuple[Tuple[float, float, float], ...]):
+                 cluster_sizes: Tuple[Tuple[float, float, float], ...],
+                 num_frames: int = 2):
         super().__init__()
         self.cfg = cfg
         self.cluster_sizes = cluster_sizes
+        self.num_frames = num_frames
         m = cfg.model
         ku = cfg.dataset.kitti_utils
         dtype = (torch.bfloat16 if m.tower_dtype == "bfloat16"
@@ -338,8 +404,9 @@ class DtAvodNet(nn.Module):
         bch = m.rpn.bottleneck_channels
         self.bev_bottleneck = Bottleneck(bev_ch, bch)
         self.img_bottleneck = Bottleneck(img_ch, bch)
-        self.bev_corr_bottleneck = CorrBottleneck(
-            1, m.correlation.max_displacement, m.correlation.stride_2)
+        if self.correlates:
+            self.bev_corr_bottleneck = CorrBottleneck(
+                1, m.correlation.max_displacement, m.correlation.stride_2)
         rpn_in = m.rpn.proposal_roi_crop_size ** 2 * bch
         if m.rpn.fusion_method == "concat":
             rpn_in *= 2
@@ -358,8 +425,9 @@ class DtAvodNet(nn.Module):
                                  out_dims, m.avod.fusion_type,
                                  m.avod.fusion_method, dtype,
                                  m.avod.keep_prob)
-        self.corr_fc = MlpHead(s2, m.avod.fc_layer_sizes, 3, dtype,
-                               m.avod.keep_prob, "corr_fc")
+        if self.correlates:
+            self.corr_fc = MlpHead(s2, m.avod.fc_layer_sizes, 3, dtype,
+                                   m.avod.keep_prob, "corr_fc")
         self.lattice = build_bev_lattice(
             ku.area_extents, ku.anchor_strides, cluster_sizes, ku.bev_shape,
             ku.voxel_size, m.rpn.proposal_roi_crop_size)
@@ -368,36 +436,32 @@ class DtAvodNet(nn.Module):
     def num_classes(self) -> int:
         return len(self.cfg.dataset.classes) + 1
 
+    @property
+    def correlates(self) -> bool:
+        """Only the paired model has the correlation branch (the JAX
+        model correlates when F == 2)."""
+        return self.num_frames == 2
+
+    @staticmethod
+    def loss_builder():
+        """This model family's losses, which the Trainer and val_health
+        take."""
+        return compute_losses
+
     # ------------------------------------------------------------------
     # Shared stages. The streaming interface (encode_frame / pair_stage)
     # and the monolithic forward run the same RPN and second-stage math;
     # the JAX package keeps two copies, the port one.
 
-    def _tower(self, tower: VggPyramid, x: torch.Tensor,
-               fused: bool) -> torch.Tensor:
-        """A tower in f32 out; ``remat_towers`` recomputes its
-        activations in the backward (the JAX model's nn.remat,
-        dt_avod.py:283-288)."""
-        if self.cfg.model.remat_towers and torch.is_grad_enabled():
-            from torch.utils.checkpoint import checkpoint
-            y = checkpoint(tower, x, fused, use_reentrant=False)
-        else:
-            y = tower(x, fused)
-        return y.to(torch.float32)
-
     def _encode(self, points, points_valid, gps, images, p2, img_shapes,
                 ctx: _TrainCtx = _EVAL) -> Dict[str, torch.Tensor]:
-        """Encode M frame rows: rasterisation, anchors and the lattice's
-        empty-anchor mask, both towers over all rows at once, then the
-        RPN (``_rpn``). Returns bev_input, anchors (M, N, 6),
-        anchor_valid (M, N), the f32 tower features and ``_rpn``'s
-        outputs. The conv-chain kernel runs on eval paths only."""
+        """Encode M frame rows: rasterisation, anchors and the empty-anchor
+        mask, both towers over all rows at once, then the RPN (``_rpn``).
+        Returns bev_input, anchors (M, N, 6), anchor_valid (M, N), the f32
+        tower features and ``_rpn``'s outputs. The conv-chain kernel runs
+        on eval paths only."""
         ku = self.cfg.dataset.kitti_utils
         bg = ku.bev_generator
-        if self.lattice is None:
-            raise NotImplementedError(
-                "anchor geometry off the BEV pixel lattice: the per-anchor "
-                "crop path is not ported (ROADMAP A15)")
         maps = [bev_maps_from_points(p, v, gp, ku.area_extents,
                                      ku.voxel_size, bg.height_lo,
                                      bg.height_hi, bg.num_slices)
@@ -405,14 +469,15 @@ class DtAvodNet(nn.Module):
         sizes = np.asarray(self.cluster_sizes, np.float32)
         anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
             ku.area_extents, sizes, ku.anchor_strides, gp)) for gp in gps])
-        anchor_valid = torch.stack([dense_empty_anchor_mask(
-            integral_image_2d(mp.occupancy), self.lattice,
-            ku.density_threshold) for mp in maps])
+        anchor_valid = torch.stack([
+            anchor_valid_mask(self.cfg, self.lattice, mp.occupancy, anc)
+            for mp, anc in zip(maps, anchors)])
         bev_input = torch.stack([mp.features for mp in maps])
         fused = not ctx.train_mode
-        bev_feats = self._tower(self.bev_vgg_pyr, bev_input, fused)
-        img_feats = self._tower(self.img_vgg_pyr, preprocess_image(images),
-                                fused)
+        remat = self.cfg.model.remat_towers
+        bev_feats = tower_forward(remat, self.bev_vgg_pyr, bev_input, fused)
+        img_feats = tower_forward(remat, self.img_vgg_pyr,
+                                  preprocess_image(images), fused)
         return {"bev_input": bev_input, "anchors": anchors,
                 "anchor_valid": anchor_valid, "bev_feats": bev_feats,
                 "img_feats": img_feats,
@@ -450,16 +515,15 @@ class DtAvodNet(nn.Module):
 
     def _rpn(self, bev_feats, img_feats, anchors, anchor_valid, p2,
              img_shapes, ctx: _TrainCtx = _EVAL) -> Dict[str, torch.Tensor]:
-        """Bottlenecks, dense-lattice RPN with (two-pass) image fusion and
-        exact NMS, per frame row: objectness (M, K, 2), rpn_offsets
-        (M, K, 6) over the K scored anchors (all of them, or the
-        fusion_top_k candidates followed, when ``ctx.mb`` is set, by the
-        sampled mini-batch, whose head outputs and targets are returned
-        as ``rpn_mb``), and the test_nms_size (train_nms_size in train
-        mode) proposals."""
+        """Bottlenecks, all-anchor BEV ROIs, RPN with (two-pass) image
+        fusion and exact NMS, per frame row: objectness (M, K, 2),
+        rpn_offsets (M, K, 6) over the K scored anchors (all of them, or
+        the fusion_top_k candidates followed, when ``ctx.mb`` is set, by
+        the sampled mini-batch, whose head outputs and targets are
+        returned as ``rpn_mb``), and the test_nms_size (train_nms_size in
+        train mode) proposals."""
         ku = self.cfg.dataset.kitti_utils
         m = self.cfg.model
-        lat = self.lattice
         bev_bottle = _resize_to(self.bev_bottleneck(bev_feats),
                                 ku.bev_shape)
         img_bottle = self.img_bottleneck(img_feats)
@@ -469,9 +533,8 @@ class DtAvodNet(nn.Module):
         ones = anchors.new_ones(b)
         bev_w = (ones if ctx.bev_w is None else ctx.bev_w)[:, None, None]
         img_w = (ones if ctx.img_w is None else ctx.img_w)[:, None, None]
-        bev_flat = torch.stack([dense_bev_rois(fm, lat)
-                                for fm in bev_bottle]).reshape(b, n_anchors,
-                                                               -1)
+        bev_flat = bev_anchor_rois(self.cfg, self.lattice, bev_bottle,
+                                   anchors)
         k_fuse = m.rpn.fusion_top_k
         two_pass = bool(k_fuse) and k_fuse < n_anchors
         sample_mb = two_pass and ctx.mb is not None
@@ -541,15 +604,15 @@ class DtAvodNet(nn.Module):
     def _second_stage(self, bev_bf, img_bf, top_anchors, top_valid, gp, p2,
                       img_shapes, expand: float, ctx: _TrainCtx = _EVAL
                       ) -> Dict[str, torch.Tensor]:
-        """Correlation of frame 0 against frame 1, second-stage crops,
-        trunk, corr head, decode and final NMS over (B, F, ...) frame
-        pairs. ``expand`` widens the proposals' x/z extents for the crops
-        only (``expand_proposals_xz``). In train mode the crops take the
-        gather form, so gradients reach the maps and, through the
-        proposal coordinates, the RPN regression head."""
+        """Correlation of frame 0 against frame 1 (the paired model),
+        second-stage crops, trunk, corr head, decode and final NMS over
+        (B, F, ...) frame rows. ``expand`` widens the proposals' x/z
+        extents for the crops only (``expand_proposals_xz``). In train
+        mode the crops take the gather form, so gradients reach the maps
+        and, through the proposal coordinates, the RPN regression
+        head."""
         ku = self.cfg.dataset.kitti_utils
         m = self.cfg.model
-        corr_bottle = self.bev_corr_bottleneck(bev_bf[:, 0], bev_bf[:, 1])
         b, f, k = top_anchors.shape[0:3]
         proj_in = top_anchors
         if expand > 0.0:
@@ -585,11 +648,6 @@ class DtAvodNet(nn.Module):
         angle_vecs = (branch[2].reshape(b, f, k, 2)
                       if ANGLE_SIZE[rep] else None)
 
-        corr_rois = torch.stack([crop_and_resize(cm, bx, s) for cm, bx in
-                                 zip(corr_bottle, ss_bev_yx[:, 0])])
-        corr_offsets = self.corr_fc(corr_rois.reshape(b * k, -1), ctx.rand
-                                    ).reshape(b, k, 3)
-
         prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors, fix_lw=True)
         gp4 = gp.to(torch.float32)[:, None, None, :]
         prop_enc = encode_proposals(rep, prop_boxes_3d, gp4)
@@ -604,8 +662,7 @@ class DtAvodNet(nn.Module):
         f_idx, f_valid = nms_bev_exact(pred_bev_norm,
                                        final_scores_all.detach(), top_valid,
                                        m.avod.nms_size, m.avod.nms_iou_thresh)
-        return {
-            "corr_pred": corr_offsets,
+        out = {
             "proposal_boxes_3d": prop_boxes_3d, "proposal_enc": prop_enc,
             "cls_logits": cls_logits, "box_offsets": box_offsets,
             "angle_vectors": angle_vecs,
@@ -617,24 +674,35 @@ class DtAvodNet(nn.Module):
             "final_orientations": _take(pred_orient, f_idx, 2),
             "final_cls_softmax": _take(cls_softmax, f_idx, 2),
             "final_scores": _take(final_scores_all, f_idx, 2),
-            "final_corr_offsets": _take(corr_offsets, f_idx[:, 0], 1),
         }
+        if self.correlates:
+            corr_bottle = self.bev_corr_bottleneck(bev_bf[:, 0],
+                                                   bev_bf[:, 1])
+            corr_rois = torch.stack([crop_and_resize(cm, bx, s) for cm, bx
+                                     in zip(corr_bottle, ss_bev_yx[:, 0])])
+            corr_offsets = self.corr_fc(corr_rois.reshape(b * k, -1),
+                                        ctx.rand).reshape(b, k, 3)
+            out["corr_pred"] = corr_offsets
+            out["final_corr_offsets"] = _take(corr_offsets, f_idx[:, 0], 1)
+        return out
 
     # ------------------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor], mode: str = "val",
                 train: bool = False, rand: Optional[Rand] = None
                 ) -> Dict[str, torch.Tensor]:
-        """The monolithic pair forward (the JAX ``__call__(batch, train,
+        """The monolithic forward (the JAX ``__call__(batch, train,
         mode)``).
 
-        batch (B couples, F = 2 frames): points (B, F, P, 3),
+        batch (B samples, F = num_frames frames): points (B, F, P, 3),
         points_valid (B, F, P), image (B, F, Hi, Wi, 3), ground_plane
         (B, 4), p2 (B, 3, 4), orig_image_shape (B, 2); with labels,
         gt_boxes (B, F, G, 7), gt_classes, gt_valid (B, F, G),
         corr_offsets (B, G, 3), corr_coexist (B, G). Both towers run over
         all B*F frames at once. Returns every output of the JAX
-        ``__call__``; ``angle_vectors`` is None for box representations
-        without an angle branch.
+        ``__call__`` (with one frame, no corr_pred and no
+        final_corr_offsets); ``angle_vectors`` is None for box
+        representations without an angle branch. Any other F than
+        num_frames raises a ValueError.
 
         ``mode="train"`` builds the autograd graph, runs the towers
         without the conv-chain kernel and the second-stage BEV crops in
@@ -653,10 +721,9 @@ class DtAvodNet(nn.Module):
         m = self.cfg.model
         points = batch["points"]
         b, f = points.shape[0], points.shape[1]
-        if f != 2:
-            raise NotImplementedError(
-                f"{f} frames per sample: the port's forward is the paired "
-                "model; num_frames=1 is not ported (ROADMAP A15)")
+        if f != self.num_frames:
+            raise ValueError(f"{f} frames per sample for a model of "
+                             f"num_frames={self.num_frames}")
         dev = points.device
         gps = batch["ground_plane"].to(torch.float32)
         p2 = batch["p2"]
@@ -731,6 +798,9 @@ class DtAvodNet(nn.Module):
                    ) -> Dict[str, torch.Tensor]:
         """Second stage over a cached frame pair. Like the JAX
         ``pair_stage`` it does not apply ``expand_proposals_xz``."""
+        if not self.correlates:
+            raise ValueError("pair_stage needs the paired model "
+                             "(num_frames=2)")
         def pair(key):
             return torch.stack([state_a[key], state_b[key]], dim=1)
 

@@ -1,5 +1,6 @@
-"""Grid anchors and the occupancy integral image (PyTorch port of the
-streaming-path parts of dodt_tpu/ops/anchors.py)."""
+"""Grid anchors, the occupancy integral image and the per-anchor
+empty-anchor filter (PyTorch port of dodt_tpu/ops/anchors.py, but for
+the 3D integral image, which no model path uses)."""
 from __future__ import annotations
 
 import numpy as np
@@ -49,3 +50,38 @@ def integral_image_2d(grid: torch.Tensor) -> torch.Tensor:
     integer occupancy counts (< 2^24) in float32."""
     c = torch.cumsum(torch.cumsum(grid, dim=0), dim=1)
     return torch.nn.functional.pad(c, (1, 0, 1, 0))
+
+
+def bev_occupancy_counts(integral_2d: torch.Tensor, anchors: torch.Tensor,
+                         bev_extents, voxel_size: float) -> torch.Tensor:
+    """Occupied-cell counts under each anchor's footprint from the
+    (X+1, Z+1) zero-padded integral image of the 0/1 occupancy grid
+    indexed [x_cell, z_cell]; anchors (N, 6), bev_extents [[x_min,
+    x_max], [z_min, z_max]]. Corner cells are floored and clipped to the
+    grid, the upper ones inclusive (reference
+    anchor_filter.get_empty_anchor_filter_2d:65)."""
+    nx = integral_2d.shape[0] - 1
+    nz = integral_2d.shape[1] - 1
+    ext = torch.as_tensor(np.asarray(bev_extents, np.float32),
+                          device=anchors.device)
+    x, z = anchors[:, 0], anchors[:, 2]
+    half_x, half_z = anchors[:, 3] / 2.0, anchors[:, 5] / 2.0
+
+    def cell(v, lo, n):
+        return torch.clamp(torch.floor((v - lo) / voxel_size).long(), 0,
+                           n - 1)
+    x1 = cell(x - half_x, ext[0, 0], nx)
+    x2 = cell(x + half_x, ext[0, 0], nx) + 1
+    z1 = cell(z - half_z, ext[1, 0], nz)
+    z2 = cell(z + half_z, ext[1, 0], nz) + 1
+    return (integral_2d[x2, z2] - integral_2d[x1, z2]
+            - integral_2d[x2, z1] + integral_2d[x1, z1])
+
+
+def empty_anchor_mask(integral_2d: torch.Tensor, anchors: torch.Tensor,
+                      bev_extents, voxel_size: float,
+                      density_threshold: int = 1) -> torch.Tensor:
+    """(N,) True for anchors over at least density_threshold occupied
+    cells: a mask, not a gather."""
+    return bev_occupancy_counts(integral_2d, anchors, bev_extents,
+                                voxel_size) >= density_threshold

@@ -1,23 +1,27 @@
 """Evaluation runtime: checkpoint -> predictions -> AP + MOT metrics
 (PyTorch port of dodt_tpu/runtime/evaluator.py).
 
-Per checkpoint, the val couples run through the monolithic pair forward
-in batches of ``cfg.eval.batch_size``; each couple's first and last
-frame are decoded into detection dicts (``dodt_tpu_torch.eval.decode``).
+Per checkpoint, the val couples (or N-frame stacks) run through the
+model's monolithic forward in batches of ``cfg.eval.batch_size``; each
+couple's first and last frame are decoded into detection dicts
+(``dodt_tpu_torch.eval.decode``), the Stack model's learned coexist
+beside frame 0's.
 On the host follow the KITTI prediction files per frame and per couple,
 far-keyframe recovery into each frame's own coordinates, MoI fill of the
 frames between keyframes when ``data_stride > 1``, detection AP
 (``eval.kitti_ap``, the native library when built), the IoU tracker and
 the MOT scorer (``tracking/``), and ``results_{step}.json``.
 ``repeated_checkpoint_run`` polls the checkpoint directory like the
-reference evaluator.
+reference evaluator. A single-frame dataset (no couples) takes the
+detection-only evaluation: per-sample KITTI files and AP, no tracking.
 
 The evaluator runs on ``device`` (the card unless the caller asks for
 the CPU) and moves the model there. One card needs no mesh, so there is
 no ``mesh`` argument. ``stage_seconds`` sums the wall time of each
 stage over the evaluator's runs: sample loading, the forward (ending in
 the copy of its outputs to the host), file writing with recovery and
-MoI, AP, tracking with MOT scoring, and ``val_health``.
+MoI, AP, tracking with MOT scoring, and ``val_health``; the
+detection-only evaluation has no tracking or val_health stage.
 """
 from __future__ import annotations
 
@@ -36,13 +40,17 @@ from dodt_tpu_torch.data import kitti
 from dodt_tpu_torch.eval import decode as decode_lib
 from dodt_tpu_torch.eval import kitti_ap, kitti_writer
 from dodt_tpu_torch.models.dt_avod import (FINAL_KEYS, Rand,
-                                           compute_losses, generator_draws)
+                                           generator_draws)
 from dodt_tpu_torch.ops import boxes as box_ops
-from dodt_tpu_torch.runtime.trainer import CheckpointIO
+from dodt_tpu_torch.runtime.trainer import CheckpointIO, model_losses
 from dodt_tpu_torch.tracking import iou_tracker, moi, mot_eval
 from dodt_tpu_torch.utils.np_iou import rotated_iou_matrix
 
 AP_METRICS = (("image", "AP_2D"), ("ground", "AP_BEV"), ("3d", "AP_3D"))
+# what the evaluator copies to the host: the decoded detections, and the
+# Stack model's coexist of frame 0's (models without one lack the key, as
+# the single-frame model lacks final_corr_offsets)
+FETCH_KEYS = FINAL_KEYS + ("final_coexist",)
 
 
 class Evaluator:
@@ -77,6 +85,15 @@ class Evaluator:
                                    device=self.device)
                 for k in samples[0] if isinstance(samples[0][k], np.ndarray)}
 
+    def _forward(self, samples) -> Dict[str, np.ndarray]:
+        """The val-mode forward of ``samples`` padded to
+        ``cfg.eval.batch_size`` by repeating the last one; only
+        FETCH_KEYS come back to the host."""
+        target = max(self.cfg.eval.batch_size, 1, len(samples))
+        padded = samples + [samples[-1]] * (target - len(samples))
+        out = self.model(self._device_batch(padded), mode="val")
+        return {k: out[k].cpu().numpy() for k in FETCH_KEYS if k in out}
+
     @torch.no_grad()
     def predict_couples(self, idxs: List[int]) -> List[Dict]:
         """Run the model on a batch of val couples; per couple, return
@@ -87,22 +104,23 @@ class Evaluator:
         t0 = time.perf_counter()
         samples = [self._load(i) for i in idxs]
         t1 = time.perf_counter()
-        target = max(self.cfg.eval.batch_size, 1, len(samples))
-        padded = samples + [samples[-1]] * (target - len(samples))
-        out = self.model(self._device_batch(padded), mode="val")
-        out = {k: out[k].cpu().numpy() for k in FINAL_KEYS}
+        out = self._forward(samples)
         t2 = time.perf_counter()
         self.stage_seconds["load"] += t1 - t0
         self.stage_seconds["forward"] += t2 - t1
         thr = self.cfg.eval.kitti_score_threshold
         n_frames = out["final_boxes_3d"].shape[1]
         results = []
+        def frame0(key, b, f):
+            return out[key][b] if f == 0 and key in out else None
+
         for b, (idx, sample) in enumerate(zip(idxs, samples)):
             dets = [decode_lib.outputs_to_detections(
                 out["final_boxes_3d"][b, f], out["final_orientations"][b, f],
                 out["final_scores"][b, f], out["final_cls_softmax"][b, f],
                 out["final_valid"][b, f],
-                corr_offsets=out["final_corr_offsets"][b] if f == 0 else None,
+                corr_offsets=frame0("final_corr_offsets", b, f),
+                coexist=frame0("final_coexist", b, f),
                 score_threshold=thr) for f in (0, n_frames - 1)]
             results.append({"sample": sample, "dets": dets,
                             "couple": self.dataset.couples[idx]})
@@ -120,9 +138,16 @@ class Evaluator:
                    rand: Optional[Rand] = None) -> Dict:
         """Val losses (train-mode losses, dropout off) and RPN proposal
         recall: the share of frame-0 GT boxes whose best BEV rotated IoU
-        with a top proposal exceeds 0.3 / 0.5. Every chunk of
-        ``cfg.eval.batch_size`` couples takes the same draws, as the JAX
-        evaluator's fixed key gives: ``rand``, or a generator seeded 0."""
+        with a top proposal exceeds 0.3 / 0.5. The losses are the model's
+        own (``loss_builder``). Every chunk of ``cfg.eval.batch_size``
+        couples takes the same draws, as the JAX evaluator's fixed key
+        gives: ``rand``, or a generator seeded 0.
+
+        The proposals are read at ``[b, 0]`` as the JAX evaluator reads
+        them (evaluator.py:210): frame 0's for the (B, F, K, 6) proposals
+        of DtAvodNet, but only the top proposal of the Stack model's
+        shared (B, K, 6) ones (ROADMAP C13, reproduced by design)."""
+        loss_fn = model_losses(self.model)
         bsz = max(self.cfg.eval.batch_size, 1)
         n = len(self.dataset.couples)
         if max_couples is not None:
@@ -138,7 +163,7 @@ class Evaluator:
             draws = rand or generator_draws(
                 torch.Generator(self.device).manual_seed(0))
             out = self.model(batch, mode="train", train=False, rand=draws)
-            _, losses = compute_losses(self.cfg, out, batch, draws)
+            _, losses = loss_fn(self.cfg, out, batch, draws)
             for k, v in losses.items():
                 # a chunk's loss is its batch mean (padding repeats the
                 # last sample, skewing only the last partial chunk)
@@ -166,11 +191,22 @@ class Evaluator:
 
     # ------------------------------------------------ one checkpoint
 
-    def _ap(self, gts, det_frames, min_iou_of) -> Dict:
-        return {cls_name: {name: kitti_ap.evaluate_ap(
-            gts, det_frames, cls_name, metric, min_iou_of(cls_name))
+    def _ap_both_passes(self, gts, det_frames):
+        """(AP per class with Car at min IoU 0.7 and the others at 0.5, as
+        the official evaluator's CLASS_NAMES/MIN_OVERLAP; every class at
+        0.5, the reference's evaluate_object_3d_offline_05_iou run, the
+        non-Car classes reusing their first pass)."""
+        first = {cls_name: {name: kitti_ap.evaluate_ap(
+            gts, det_frames, cls_name, metric,
+            0.7 if cls_name == "Car" else 0.5)
             for metric, name in AP_METRICS}
             for cls_name in self.cfg.dataset.classes}
+        second = dict(first)
+        if "Car" in first:
+            second["Car"] = {name: kitti_ap.evaluate_ap(
+                gts, det_frames, "Car", metric, 0.5)
+                for metric, name in AP_METRICS}
+        return first, second
 
     def run_checkpoint_once(self, step: Optional[int] = None,
                             interpolate: Optional[bool] = None) -> Dict:
@@ -288,19 +324,10 @@ class Evaluator:
                     video_dets[cp.video_id][frame_no] = recovered
             secs["write"] += time.perf_counter() - t0
 
-        # ---- AP per class (Car at min IoU 0.7, others at 0.5, as the
-        # official evaluator's CLASS_NAMES/MIN_OVERLAP), then every class
-        # at 0.5, mirroring the reference's evaluate_object_3d_offline_
-        # 05_iou run; non-Car classes reuse their first pass
+        # ---- AP per class at both passes
         t0 = time.perf_counter()
-        ap_per_class = self._ap(
-            gts, det_frames, lambda c: 0.7 if c == "Car" else 0.5)
+        ap_per_class, ap_05_per_class = self._ap_both_passes(gts, det_frames)
         ap = ap_per_class[self.cfg.dataset.classes[0]]
-        ap_05_per_class = dict(ap_per_class)
-        if "Car" in ap_per_class:
-            ap_05_per_class["Car"] = {name: kitti_ap.evaluate_ap(
-                gts, det_frames, "Car", metric, 0.5)
-                for metric, name in AP_METRICS}
         t1 = time.perf_counter()
         secs["ap"] += t1 - t0
 
@@ -325,9 +352,62 @@ class Evaluator:
         return results
 
     def _run_detection_only(self, step) -> Dict:
-        raise NotImplementedError(
-            "single-frame evaluation (a dataset without couples) waits for "
-            "the single-frame model, ROADMAP §A item 3")
+        """Single-frame evaluation over KittiDataset samples (the
+        reference's AVOD evaluator loop, evaluator.py): per-sample KITTI
+        files and official-protocol AP at both IoU passes, no MOT, in the
+        JAX evaluator's order of operations (evaluator.py:402-490)."""
+        pred_dir = os.path.join(self.output_dir,
+                                f"predictions_{step}", "data")
+        os.makedirs(pred_dir, exist_ok=True)
+        thr = self.cfg.eval.kitti_score_threshold
+        gts: List[kitti_ap.FrameGt] = []
+        det_frames: List[kitti_ap.FrameDet] = []
+        names = list(self.dataset.sample_names)
+        bsz = max(self.cfg.eval.batch_size, 1)
+        secs = self.stage_seconds
+        for start in range(0, len(names), bsz):
+            t0 = time.perf_counter()
+            idxs = range(start, min(start + bsz, len(names)))
+            samples = [self.dataset.load_sample(i, augs=()) for i in idxs]
+            t1 = time.perf_counter()
+            out = self._forward(samples)
+            t2 = time.perf_counter()
+            secs["load"] += t1 - t0
+            secs["forward"] += t2 - t1
+            for b, (i, sample) in enumerate(zip(idxs, samples)):
+                name = names[i]
+                dets = decode_lib.outputs_to_detections(
+                    out["final_boxes_3d"][b, 0],
+                    out["final_orientations"][b, 0],
+                    out["final_scores"][b, 0],
+                    out["final_cls_softmax"][b, 0], out["final_valid"][b, 0],
+                    score_threshold=thr)
+                calib = kitti.read_calibration(self.dataset.calib_dir, name)
+                img_size = (int(sample["orig_image_shape"][1]),
+                            int(sample["orig_image_shape"][0]))
+                raw = kitti.read_labels(self.dataset.label_dir, name,
+                                        keep_dontcare=True)
+                dc = np.array([t == "DontCare" for t in raw.types], bool)
+                gts.append(kitti_ap.FrameGt.from_labels(
+                    raw.select(~dc), dontcare=raw.bbox_2d[dc]))
+                det_frames.append(self._frame_det(dets, calib, img_size))
+                kitti_writer.write_kitti_file(
+                    os.path.join(pred_dir, f"{name}.txt"),
+                    self._kitti_lines(dets, calib, img_size))
+            secs["write"] += time.perf_counter() - t2
+
+        t0 = time.perf_counter()
+        ap_per_class, ap_05_per_class = self._ap_both_passes(gts, det_frames)
+        secs["ap"] += time.perf_counter() - t0
+        results = {"step": int(step),
+                   "ap": ap_per_class[self.cfg.dataset.classes[0]],
+                   "ap_per_class": ap_per_class,
+                   "ap_05_per_class": ap_05_per_class}
+        with open(os.path.join(self.output_dir,
+                               f"results_{step}.json"), "w") as f:
+            json.dump(results, f, indent=2)
+        self._evaluated.add(int(step))
+        return results
 
     # ------------------------------------------- ego-motion recovery
 

@@ -192,13 +192,24 @@ def create_train_state(cfg: PipelineConfig, model: torch.nn.Module
                       ema_params=ema)
 
 
+def model_losses(model: torch.nn.Module) -> Callable:
+    """The model family's loss function (JAX trainer.py:106-108). Both
+    families define ``loss_builder``; a module without one (the bare
+    modules the entry-point tests build a Trainer around) gets
+    ``dt_avod.compute_losses``, as in JAX."""
+    if hasattr(model, "loss_builder"):
+        return model.loss_builder()
+    return dt_avod.compute_losses
+
+
 def make_train_step(cfg: PipelineConfig, model: torch.nn.Module):
     """(state, batch, rand) -> (new state, losses): one forward in train
     mode (dropout, path drop, sampling from ``rand``), the model's
-    losses, autograd gradients of every parameter, the optimiser update
-    and the EMA. Losses stay on the device."""
+    losses (``model_losses``), autograd gradients of every parameter, the
+    optimiser update and the EMA. Losses stay on the device."""
     tx = make_optimizer(cfg, frozen_mask_from_subtrees(
         dict(model.named_parameters()), cfg.train.frozen_subtrees or ()))
+    loss_fn = model_losses(model)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rand: dt_avod.Rand):
@@ -207,7 +218,7 @@ def make_train_step(cfg: PipelineConfig, model: torch.nn.Module):
         out = torch.func.functional_call(
             model, params, (batch,),
             {"mode": "train", "train": True, "rand": rand})
-        total, losses = dt_avod.compute_losses(cfg, out, batch, rand)
+        total, losses = loss_fn(cfg, out, batch, rand)
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if gr is None else gr

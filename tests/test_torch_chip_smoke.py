@@ -4,6 +4,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke
@@ -138,3 +139,85 @@ def test_eval_outputs_check_on_a_cpu_run(tmp_path):
     (out / "predictions_1" / "data" / "000001.txt").unlink()
     with pytest.raises(chip_smoke.PhaseError, match="frame files"):
         chip_smoke.check_eval_outputs(res, str(out), ds, keys)
+
+
+def _files(root):
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in Path(root).rglob("*") if p.is_file()}
+
+
+def _assert_samples_equal(s, r):
+    assert s.keys() == r.keys()
+    for k in r:
+        if isinstance(r[k], np.ndarray):
+            assert s[k].dtype == r[k].dtype, k
+        np.testing.assert_array_equal(s[k], r[k], err_msg=k)
+
+
+def test_detection_fixture_without_pngs_reads_as_the_png_route(tmp_path):
+    """Phases 11 and 13's object fixture: write_detection_fixture's files,
+    byte for byte, but the PNGs; detection_dataset's samples equal those
+    KittiDataset reads from the PNGs with cv2, bitwise."""
+    from dodt_tpu_torch.config import unittest_pipeline
+    from dodt_tpu_torch.data import detection, synthetic
+    a, b = str(tmp_path / "smoke"), str(tmp_path / "writer")
+    scene = chip_smoke.write_detection_eval_fixture(a, 3)
+    synthetic.write_detection_fixture(b, num_frames=3)
+    got, want = _files(a), _files(b)
+    assert got == {k: v for k, v in want.items() if not k.endswith(".png")}
+    assert len(want) - len(got) == 3
+    cfg = unittest_pipeline()
+    cfg.dataset.dataset_dir = b
+    ds = chip_smoke.detection_dataset(cfg, scene)
+    ref = detection.KittiDataset(cfg.dataset, split="val")
+    assert ds.sample_names == ref.sample_names
+    for idx in range(len(ref)):
+        _assert_samples_equal(ds.load_sample(idx), ref.load_sample(idx))
+
+
+def test_stack_eval_dataset_reads_as_the_png_route(tmp_path):
+    """Phase 12 reads phase 9's fixture through KittiTrackingStackDataset
+    with the flat-card images: every stack equal to the PNG route's."""
+    from dodt_tpu_torch.config import unittest_pipeline
+    from dodt_tpu_torch.data import stack, synthetic
+    scenes = chip_smoke.write_eval_fixture(str(tmp_path / "smoke"),
+                                           (0.0, 0.5), 4)
+    synthetic.write_tracking_fixture(str(tmp_path / "png"), num_videos=2,
+                                     num_frames=4,
+                                     video_specs=[{"ego_speed": 0.0},
+                                                  {"ego_speed": 0.5}])
+    cfg = chip_smoke.eval_cfg(unittest_pipeline(), str(tmp_path / "png"))
+    cfg.dataset.data_stride = 3
+    ds = chip_smoke.eval_dataset(cfg, scenes,
+                                 stack.KittiTrackingStackDataset)
+    ref = stack.KittiTrackingStackDataset(cfg.dataset, split="val")
+    assert ds.num_frames == 4 and len(ds.couples) == len(ref.couples) == 4
+    for idx in range(len(ref.couples)):
+        _assert_samples_equal(ds.load_stack(idx), ref.load_stack(idx))
+
+
+def test_smoke_batches_have_the_datasets_keys(tmp_path):
+    """one_frame and stack_batch turn train_batch's couple into the keys,
+    dtypes (but the images') and frame counts of KittiDataset's and
+    KittiTrackingStackDataset's batches."""
+    from dodt_tpu_torch.config import unittest_pipeline
+    from dodt_tpu_torch.data import detection, stack, synthetic
+    cfg = unittest_pipeline()
+    couple = chip_smoke.train_batch(cfg, np.random.RandomState(0))
+    synthetic.write_detection_fixture(str(tmp_path / "obj"), num_frames=1)
+    synthetic.write_tracking_fixture(str(tmp_path / "trk"), num_videos=1,
+                                     num_frames=4)
+    for got, root, cls, frames in (
+            (chip_smoke.one_frame(couple), "obj", detection.KittiDataset, 1),
+            (chip_smoke.stack_batch(couple), "trk",
+             stack.KittiTrackingStackDataset, 4)):
+        cfg.dataset.dataset_dir = str(tmp_path / root)
+        cfg.dataset.data_stride = frames - 1
+        want = cls(cfg.dataset, split="train").next_batch(1, augment=False)
+        want.pop("sample_name")
+        assert got.keys() == want.keys(), cls
+        for k, v in want.items():
+            # make_batch's images are float32, as bench.py's
+            assert got[k].dtype == v.dtype or k == "image", k
+            assert got[k].ndim == v.ndim, k
+        assert got["points"].shape[1] == got["image"].shape[1] == frames

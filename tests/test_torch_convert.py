@@ -88,7 +88,8 @@ def test_round_trip_is_exact():
 
 PORTED_HOST_MODULES = (
     "dodt_tpu_torch.data.augment", "dodt_tpu_torch.data.clusters",
-    "dodt_tpu_torch.data.kitti", "dodt_tpu_torch.data.synthetic",
+    "dodt_tpu_torch.data.detection", "dodt_tpu_torch.data.kitti",
+    "dodt_tpu_torch.data.stack", "dodt_tpu_torch.data.synthetic",
     "dodt_tpu_torch.data.tracking", "dodt_tpu_torch.eval.kitti_ap",
     "dodt_tpu_torch.eval.kitti_writer", "dodt_tpu_torch.native",
     "dodt_tpu_torch.tracking.iou_tracker", "dodt_tpu_torch.tracking.moi",

@@ -329,17 +329,33 @@ def test_run_latest_checkpoints_evaluates_each_step_once(tmp_path,
 
 
 def test_dataset_without_couples_raises(tmp_path, jax_params):
-    """Single-frame evaluation waits for the single-frame model."""
-    class Frames:
-        sample_names = ["000000"]
-
-    cfg = config_from_json(_cfg(str(tmp_path)))
+    """A dataset without couples (two single-frame samples) takes the
+    detection-only evaluation: the paired model's forward raises on its
+    one frame per sample; the one-frame model's run writes a file per
+    sample and AP at both passes, no MOT (tests/test_torch_single_frame.py
+    holds it against the JAX evaluator)."""
+    from dodt_tpu_torch.data import detection, synthetic as tsynth
+    root = str(tmp_path / "kitti")
+    tsynth.write_detection_fixture(root, num_frames=2)
+    cfg = config_from_json(_cfg(root))
+    ds = detection.KittiDataset(cfg.dataset, split="val")
     _port_checkpoint(str(tmp_path / "ckpt"), 1, jax_params.params)
-    ev = Evaluator(cfg, _port_model(_cfg(str(tmp_path))), Frames(),
-                   str(tmp_path / "ckpt"), str(tmp_path / "out"),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    ev = Evaluator(cfg, _port_model(_cfg(root)), ds, str(tmp_path / "ckpt"),
+                   str(tmp_path / "out"), device="cpu")
+    with pytest.raises(ValueError, match="1 frames per sample"):
         ev.run_checkpoint_once()
+    one = tdt.DtAvodNet(cfg, CLUSTERS, num_frames=1)
+    sd = {k: v for k, v in flax_to_state_dict(jax_params.params).items()
+          if k.split(".")[0] not in ("bev_corr_bottleneck", "corr_fc")}
+    CheckpointIO(str(tmp_path / "ckpt1")).save(
+        1, TrainState(step=1, params=sd, opt_state={}))
+    ev = Evaluator(cfg, one, ds, str(tmp_path / "ckpt1"),
+                   str(tmp_path / "out1"), device="cpu")
+    res = ev.run_checkpoint_once()
+    assert set(res) == {"step", "ap", "ap_per_class", "ap_05_per_class"}
+    assert sorted(os.listdir(tmp_path / "out1" / "predictions_1" / "data")) \
+        == ["000000.txt", "000001.txt"]
+    assert set(ev.stage_seconds) == {"load", "forward", "write", "ap"}
 
 
 def test_no_checkpoint_raises(tmp_path):

@@ -156,16 +156,16 @@ def _one_frame(batch):
             for k, v in batch.items()}
 
 
-# train mode is ported (tests/test_torch_train.py); one frame per sample
-# is not, in either mode
+# the paired model takes two frames per sample, in either mode; one frame
+# is DtAvodNet(num_frames=1)'s (tests/test_torch_single_frame.py)
 @pytest.mark.parametrize("change,match", [
-    (lambda batch: (_one_frame(batch), "train"), "ROADMAP A15"),
-    (lambda batch: (_one_frame(batch), "val"), "ROADMAP A15"),
+    (lambda batch: (_one_frame(batch), "train"), "num_frames=2"),
+    (lambda batch: (_one_frame(batch), "val"), "num_frames=2"),
 ])
 def test_forward_unported_paths_raise(fixture, change, match):
     cfg, params, batch = fixture
     b, mode = change(_tensors(batch))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         _torch_model(cfg, params)(b, mode=mode)
 
 

@@ -620,3 +620,122 @@ def test_get_clusters_equal(fixture_roots, tmp_path):
                 jclusters.get_clusters(jds, cfg))
     pts = np.random.RandomState(3).uniform(1, 5, (40, 3))
     assert_same(tclusters.kmeans(pts, 3), jclusters.kmeans(pts, 3))
+
+
+# ---------------------------------------------------------------------------
+# The single-frame and Stack datasets: the object fixture writer byte for
+# byte, KittiDataset.load_sample and KittiTrackingStackDataset.load_stack
+# bitwise, merge_track_boxes and the clusters over both.
+
+from dodt_tpu.data import detection as jdetection
+from dodt_tpu.data import stack as jstack
+from dodt_tpu_torch.data import detection as tdetection
+from dodt_tpu_torch.data import stack as tstack
+
+
+@pytest.fixture(scope="module")
+def object_roots(tmp_path_factory):
+    """The object fixture (two scenes of three frames) written by both
+    packages."""
+    roots = {}
+    for name, mod in (("jax", jsynth), ("port", tsynth)):
+        roots[name] = str(tmp_path_factory.mktemp("obj_" + name) / "kitti")
+        mod.write_detection_fixture(roots[name], num_frames=3, num_scenes=2)
+    return roots
+
+
+def test_write_detection_fixture_byte_for_byte(object_roots):
+    files = {}
+    for name, root in object_roots.items():
+        files[name] = sorted(os.path.relpath(os.path.join(d, f), root)
+                             for d, _, fs in os.walk(root) for f in fs)
+    assert files["port"] == files["jax"]
+    assert sum(f.endswith(".png") for f in files["jax"]) == 6
+    for rel in files["jax"]:
+        with open(os.path.join(object_roots["jax"], rel), "rb") as f:
+            want = f.read()
+        with open(os.path.join(object_roots["port"], rel), "rb") as f:
+            assert f.read() == want, rel
+
+
+@pytest.mark.parametrize("max_points", [1024, 16384],
+                         ids=["subsampled", "padded"])
+@pytest.mark.parametrize("augs", [(), ("flipping",),
+                                  ("flipping", "pca_jitter")],
+                         ids=["none", "flip", "flip_pca"])
+def test_load_sample_sample_for_sample(object_roots, max_points, augs):
+    """Every sample, every key, bitwise, under the same generator; the
+    port reads its camera image through _camera_image."""
+    cfg = _dataset_cfg(object_roots["jax"], max_points)
+    jds = jdetection.KittiDataset(cfg.dataset, split="trainval")
+    tds = tdetection.KittiDataset(config_from_json(cfg).dataset,
+                                  split="trainval")
+    assert tds.sample_names == jds.sample_names and len(jds) == 6
+    for idx in range(len(jds)):
+        want = jds.load_sample(idx, augs, np.random.RandomState(idx))
+        got = tds.load_sample(idx, augs, np.random.RandomState(idx))
+        assert_same(got, want, f"sample {idx}")
+
+
+def test_merge_track_boxes_equal():
+    rng = np.random.RandomState(11)
+    for n in (1, 2, 4):
+        boxes = _det_boxes(rng, n).astype(np.float32)
+        boxes[1:, :3] = boxes[0, :3] + rng.normal(0, 0.8, (n - 1, 3))
+        boxes[1:, 6] = boxes[0, 6] + rng.normal(0, 0.1, n - 1)
+        assert_same(tstack.merge_track_boxes(boxes),
+                    jstack.merge_track_boxes(boxes))
+
+
+@pytest.mark.parametrize("max_points", [1024, 16384],
+                         ids=["subsampled", "padded"])
+@pytest.mark.parametrize("augs", [(), ("flipping",),
+                                  ("flipping", "pca_jitter")],
+                         ids=["none", "flip", "flip_pca"])
+def test_load_stack_sample_for_sample(fixture_roots, max_points, augs):
+    """Every stack (data_stride 2: three frames, the last ones clamped at
+    the video end) of both videos, every key, bitwise."""
+    cfg = _dataset_cfg(fixture_roots["jax"], max_points)
+    cfg.dataset.data_stride = 2
+    jds = jstack.KittiTrackingStackDataset(cfg.dataset, split="trainval")
+    tds = tstack.KittiTrackingStackDataset(config_from_json(cfg).dataset,
+                                           split="trainval")
+    assert tds.num_frames == jds.num_frames == 3
+    for idx in range(len(jds.couples)):
+        want = jds.load_stack(idx, augs, np.random.RandomState(idx))
+        got = tds.load_stack(idx, augs, np.random.RandomState(idx))
+        assert_same(got, want, f"stack {idx}")
+
+
+def test_detection_and_stack_next_batch_equal(fixture_roots, object_roots):
+    """Epoch shuffling, sampled augmentations and stacking over three
+    batches of each dataset."""
+    for root, jcls, tcls in (
+            (object_roots["jax"], jdetection.KittiDataset,
+             tdetection.KittiDataset),
+            (fixture_roots["jax"], jstack.KittiTrackingStackDataset,
+             tstack.KittiTrackingStackDataset)):
+        cfg = _dataset_cfg(root, 1024)
+        cfg.dataset.data_stride = 2
+        jds = jcls(cfg.dataset, split="train")
+        tds = tcls(config_from_json(cfg).dataset, split="train")
+        for i in range(3):
+            assert_same(tds.next_batch(2, augment=True),
+                        jds.next_batch(2, augment=True), f"batch {i}")
+
+
+def test_get_clusters_over_both_new_datasets(fixture_roots, object_roots):
+    for root, jcls, tcls in (
+            (object_roots["jax"], jdetection.KittiDataset,
+             tdetection.KittiDataset),
+            (fixture_roots["jax"], jstack.KittiTrackingStackDataset,
+             tstack.KittiTrackingStackDataset)):
+        cfg = _dataset_cfg(root, 1024)
+        cfg.dataset.classes = ("Car", "Pedestrian")
+        cfg.dataset.num_clusters = (2, 1)
+        want = jclusters.get_clusters(jcls(cfg.dataset, split="trainval"),
+                                      cfg)
+        assert len(want) == 3
+        assert_same(tclusters.get_clusters(
+            tcls(config_from_json(cfg).dataset, split="trainval"), cfg),
+            want)
