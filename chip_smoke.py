@@ -73,7 +73,23 @@ and its reason on stdout and stderr, and prints no result:
  13. the one-frame and the Stack forward of the small config (f32, plain
      convolutions) on the card against the CPU (phase 6's rule), and the
      one-frame model's detection-only evaluation on the card against the
-     CPU (phase 10's rule).
+     CPU (phase 10's rule);
+ 14. the model variants at full width (random weights, 65536 points):
+     V1 box_8c, late fusion by max, plain VGG towers, fast NMS; V2
+     box_3d, deep fusion by mean, GroupNorm towers, greedy NMS; V3 the
+     people preset's two-class head, box_8co, early fusion by concat.
+     Each: the val pair forward timed with its B1-B3 launches (B1 on V1
+     and V3, not on V2; B2 and B3 on all), one Trainer step (finite
+     losses, step ms, peak memory); V2 also timed with exact NMS;
+ 15. V1-V3 at the small config's widths (f32, plain convolutions) on the
+     card against the CPU (phase 6's rule);
+ 16. the CLI (dodt_tpu_torch.cli.main) at full width on a JSON config
+     over phase 9's fixture: train (2 steps), evaluate (every result and
+     file, B1-B3 per couple), infer (fps_pairs) and, where matplotlib is
+     installed, demo; then the offline video MOT over evaluate's files:
+     the IoU and Kalman arms over the couple files (the IoU arm's tracks
+     equal to those from the evaluator's in-memory detections) and the
+     IoU arm over the per-frame files, scored.
 
 Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
 twin's autograd backward) against the twins' autograd, and times B3's
@@ -106,7 +122,8 @@ path that runs it: B1-B3 the streaming slice, with the monolithic
 forward's, the train step's and the evaluation's counts beside it,
 ``evaluate`` per evaluated couple, and the single-frame forward's, per
 single-frame evaluated sample, the Stack forward's and per evaluated
-stack; B4 its public ops), error and times;
+stack, each variant's forward and per CLI-evaluated couple; B4 its
+public ops), error and times;
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -2080,6 +2097,320 @@ def new_families_cuda_vs_cpu(dev):
     return exact
 
 
+# ---------------------------------------------------------------- phase 14
+
+VARIANT_TRAIN_STEPS = 1
+PEOPLE = ("Pedestrian", "Cyclist")
+
+
+def variant_configs(base):
+    """{name: (config, clusters)} of the three variant configs on
+    ``base()`` (a config maker): V1 box_8c, late fusion by max, plain
+    VGG towers, fast NMS; V2 box_3d, deep fusion by mean, GroupNorm
+    towers, greedy NMS; V3 the people preset's head (two classes, a size
+    cluster each, its mini-batch ranges) with box_8co and early fusion by
+    concat (the RPN's too)."""
+    from dodt_tpu_torch.config import people_dt_tracking
+    from dodt_tpu_torch.data.clusters import (DEFAULT_CAR_CLUSTERS,
+                                              size_priors)
+
+    def variant(rep, method, ftype, nms, tower=None, people=False):
+        cfg = base()
+        cfg.model.avod.box_representation = rep
+        cfg.model.avod.fusion_method = method
+        cfg.model.avod.fusion_type = ftype
+        cfg.model.nms_mode = nms
+        for ext in (cfg.model.bev_extractor, cfg.model.img_extractor):
+            if tower == "plain":
+                ext.pyramid = False
+            elif tower == "gn":
+                ext.norm = "gn"
+        clusters = DEFAULT_CAR_CLUSTERS
+        if people:
+            p = people_dt_tracking()
+            cfg.dataset.classes = p.dataset.classes
+            cfg.dataset.num_clusters = p.dataset.num_clusters
+            for k in ("rpn_neg_iou_range", "rpn_pos_iou_range",
+                      "avod_neg_iou_range", "avod_pos_iou_range"):
+                setattr(cfg.dataset.mini_batch, k,
+                        getattr(p.dataset.mini_batch, k))
+            cfg.model.rpn.fusion_method = "concat"
+            clusters = tuple(tuple(float(v) for v in size_priors(c, 1)[0])
+                             for c in PEOPLE)
+        return cfg, clusters
+
+    return {"V1": variant("box_8c", "max", "late", "fast", "plain"),
+            "V2": variant("box_3d", "mean", "deep", "greedy", "gn"),
+            "V3": variant("box_8co", "concat", "early", "exact",
+                          people=True)}
+
+
+def variants_full_width(dev, counters):
+    """V1-V3 (variant_configs) on cars_dt_tracking at 65536 points with
+    seeded random weights: the val pair forward on make_batch's couple
+    (median of N_TIMED synced calls after N_WARM, the kernels' launches
+    in its first call) and VARIANT_TRAIN_STEPS Trainer steps on phase 7's
+    stream (finite losses, step ms, peak memory). B1 must launch on V1
+    and V3 and not on V2 (GroupNorm towers take plain convolutions, as
+    in JAX); B2 and B3 on all three. V2's forward is timed once more
+    with exact NMS, which gives greedy NMS's share of it."""
+    import shutil
+    import torch
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+
+    def base():
+        cfg = cars_dt_tracking()
+        cfg.dataset.max_points = 65536
+        return cfg
+
+    work = os.path.join(ROOT, "build", "smoke_variants")
+    shutil.rmtree(work, ignore_errors=True)
+    res = {}
+    for name, (cfg, clusters) in variant_configs(base).items():
+        model = DtAvodNet(cfg, clusters)
+        init_params(model, torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        k_final = cfg.model.avod.nms_size
+        n_cls = len(cfg.dataset.classes) + 1
+        batch = make_batch(cfg, np.random.RandomState(0))
+        fwd_ms, launches, out = timed_forward(
+            model, batch, counters, lambda out: check_finals(out, {
+                "final_boxes_3d": (1, 2, k_final, 7),
+                "final_scores": (1, 2, k_final),
+                "final_cls_softmax": (1, 2, k_final, n_cls),
+                "final_corr_offsets": (1, k_final, 3)}))
+        b1, b2, b3 = (launches[c.symbol] for c in counters)
+        log(f"variant {name} forward: {fwd_ms:.3f} ms (median of "
+            f"{N_TIMED}), valid finals per frame "
+            f"{out['final_valid'].sum(-1).tolist()}, launches {launches}")
+        check((b1 > 0) == (name != "V2"),
+              f"{name}: B1 launched {b1} times in the forward")
+        check(b2 > 0 and b3 > 0, f"{name}: B2/B3 not launched ({b2}, {b3})")
+        res[name] = {"forward_ms": fwd_ms, "launches": launches}
+        if name == "V2":
+            model.cfg.model.nms_mode = "exact"
+            res[name]["exact_nms_forward_ms"] = timed_forward(
+                model, batch, counters, lambda out: None)[0]
+            model.cfg.model.nms_mode = "greedy"
+            log(f"variant V2 forward with exact NMS: "
+                f"{res[name]['exact_nms_forward_ms']:.3f} ms")
+        del out
+        model.train()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, history, steps_ms, _ = train_run(
+            cfg, model, SmokeStream(cfg, 7), os.path.join(work, name),
+            VARIANT_TRAIN_STEPS, counters)
+        res[name].update(step_ms=steps_ms, peak_mib=torch.cuda.
+                         max_memory_allocated(dev) / 2 ** 20,
+                         loss=history[-1]["total"])
+        log(f"variant {name} training: step ms {steps_ms}, peak device "
+            f"memory {res[name]['peak_mib']:.0f} MiB")
+        del model
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------- phase 15
+
+def variants_cuda_vs_cpu(dev):
+    """V1-V3 at unittest widths (small_plain_cfg: f32, plain
+    convolutions) at B = 2 on the card against the CPU with the same
+    weights, held to phase 6's rule."""
+    import copy
+    import torch
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+
+    for name, (cfg, clusters) in variant_configs(small_plain_cfg).items():
+        cpu_model = DtAvodNet(cfg, clusters)
+        init_params(cpu_model, torch.Generator().manual_seed(1))
+        cpu_model.eval()
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        parts = [make_batch(cfg, np.random.RandomState(s)) for s in (1, 2)]
+        host = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        og = gpu_model({k: torch.as_tensor(v, device=dev)
+                        for k, v in host.items()})
+        oc = cpu_model({k: torch.as_tensor(v) for k, v in host.items()})
+        check(set(og) == set(oc), f"{name}: keys differ")
+        check(torch.equal(og["anchor_valid"].cpu(), oc["anchor_valid"]),
+              f"{name}: anchor_valid differs")
+        hold_finals(og, oc, f"variant {name} forward")
+
+
+# ---------------------------------------------------------------- phase 16
+
+def run_cli(*argv):
+    """cli.main(argv) with its standard output captured and returned."""
+    import contextlib
+    import io
+    from dodt_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(list(argv))
+    return buf.getvalue()
+
+
+def same_tracks(a, b):
+    """Two runs' KITTI tracking lines per video hold the same rows (frame,
+    track id, type) with every number within one unit of the lines' 4th
+    decimal: the couple files keep 6 decimals of each box, so a 4-decimal
+    field may round the other way."""
+    if a.keys() != b.keys():
+        return False
+    for vid in a:
+        if len(a[vid]) != len(b[vid]):
+            return False
+        for la, lb in zip(a[vid], b[vid]):
+            pa, pb = la.split(), lb.split()
+            if pa[:3] != pb[:3] or len(pa) != len(pb) or max(
+                    abs(float(x) - float(y))
+                    for x, y in zip(pa[3:], pb[3:])) > 1.5e-4:
+                return False
+    return True
+
+
+def cli_full_width(dev, counters):
+    """The port's CLI at full width (``python -m dodt_tpu_torch.cli``'s
+    main): a JSON config of cars_dt_tracking(data_stride=3) at 65536
+    points over write_eval_fixture's two videos (video 0 trains, video 1
+    evaluates), the datasets' camera images the scenes' flat gray cards
+    (KittiTrackingDataset._camera_image replaced for the phase). train
+    takes 2 steps; evaluate writes results_2.json (every key, finite
+    numbers, every frame and couple file) with B1-B3 launched in every
+    forward; infer times --max_samples 8; demo runs where matplotlib is
+    installed. Then the offline video MOT over evaluate's files: both
+    arms over the couple files, the IoU arm's tracks equal to those from
+    the evaluator's in-memory keyframe detections, and the IoU arm over
+    the per-frame files scored. Returns the numbers phase 16 prints."""
+    import copy
+    import importlib.util
+    import shutil
+    import torch
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.tracking import KittiTrackingDataset
+    from dodt_tpu_torch.runtime import video
+    from dodt_tpu_torch.runtime.evaluator import Evaluator
+
+    work = os.path.join(ROOT, "build", "smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    scenes = write_eval_fixture(root, EVAL_SPEEDS, EVAL_FRAMES)
+    cfg = eval_cfg(cars_dt_tracking(data_stride=3), root)
+    cfg.dataset.max_points = 65536
+    cfg.dataset.video_train_ids = (0,)
+    cfg.train.checkpoint_interval = 2
+    cfg_path = os.path.join(work, "cfg.json")
+    cfg.save(cfg_path)
+    ckpt, out_dir = os.path.join(work, "ckpt"), os.path.join(work, "eval")
+    device = ["--device", str(dev)]
+    ds = eval_dataset(cfg, scenes)
+    n = len(ds.couples)
+
+    def flat_cards(self, video_id, frame):
+        return flat_card(scenes[video_id].image_at(frame),
+                         self.cfg.image_shape)
+
+    in_memory = {}
+    run_tracking = Evaluator._run_tracking
+
+    def spy(self, video_dets, video_img_size=None):
+        in_memory.update(copy.deepcopy(dict(video_dets)))
+        return run_tracking(self, video_dets, video_img_size)
+
+    camera_image = KittiTrackingDataset._camera_image
+    KittiTrackingDataset._camera_image = flat_cards
+    Evaluator._run_tracking = spy
+    res = {"couples": n}
+    try:
+        log(run_cli(*device, "train", "--config", cfg_path, "--ckpt_dir",
+                    ckpt, "--max_steps", "2").strip())
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        printed = run_cli(*device, "evaluate", "--config", cfg_path,
+                          "--ckpt_dir", ckpt, "--output_dir", out_dir)
+        torch.cuda.synchronize()
+        res["eval_s"] = time.perf_counter() - t0
+        res["launches"] = {c.symbol: c.launches for c in counters}
+        log("cli evaluate table: " + " | ".join(
+            printed.strip().splitlines()[-2:]))
+        with open(os.path.join(out_dir, "results_2.json")) as f:
+            results = json.load(f)
+        keys = RESULT_KEYS if cfg.eval.val_health else \
+            RESULT_KEYS - {"val_health"}
+        check_eval_outputs(results, out_dir, ds, keys)
+        for sym, k in zip((c.symbol for c in counters), (6, 1, 1)):
+            check(res["launches"][sym] >= k * n,
+                  f"cli evaluate: {sym} launched {res['launches'][sym]} "
+                  f"times for {n} couples")
+        printed = run_cli(*device, "infer", "--config", cfg_path,
+                          "--ckpt_dir", ckpt, "--max_samples", "8",
+                          "--output_dir", os.path.join(work, "infer"))
+        res["infer"] = json.loads(printed.strip().splitlines()[-1])
+        check(res["infer"]["fps_pairs"] > 0, f"infer: {res['infer']}")
+        res["matplotlib"] = importlib.util.find_spec("matplotlib") \
+            is not None
+        if res["matplotlib"]:
+            run_cli(*device, "demo", "--config", cfg_path, "--output_dir",
+                    os.path.join(work, "demo"), "--split", "val")
+            for fn in ("bev_sample.png", "anchor_grid.png",
+                       "dataset_stats.json"):
+                check(os.path.isfile(os.path.join(work, "demo", fn)),
+                      f"demo wrote no {fn}")
+    finally:
+        KittiTrackingDataset._camera_image = camera_image
+        Evaluator._run_tracking = run_tracking
+
+    # the offline video MOT over evaluate's files: the couple files
+    # (keyframes with their offsets) through both arms, the IoU arm's
+    # tracks equal to those from the evaluator's in-memory keyframe
+    # detections; the per-frame KITTI files (the only ones with 2D boxes,
+    # which score_tracking matches) through the IoU arm
+    pred = os.path.join(out_dir, "predictions_2")
+    couples = video.load_couple_detections(os.path.join(pred, "couples"))
+    keyframes = {vid: {f: in_memory[vid][f] for f in frames}
+                 for vid, frames in couples.items()}
+    ev = cfg.eval
+    kw = dict(sigma_l=ev.track_lth, sigma_h=ev.track_hth,
+              sigma_iou=ev.track_liou, t_min=ev.track_tmin)
+    stride = cfg.dataset.data_stride
+    iou_lines = video.run_video_pipeline(
+        couples, tracker="iou", stride=stride,
+        align_fn=video.dataset_align_fn(ds), **kw)
+    memory_lines = video.run_video_pipeline(
+        keyframes, tracker="iou", stride=stride,
+        align_fn=video.dataset_align_fn(ds), **kw)
+    kf_lines = video.run_video_pipeline(
+        couples, tracker="kf", stride=stride,
+        ego_fn=video.dataset_ego_fn(ds), **kw)
+    frame_lines = video.run_video_pipeline(
+        video.load_kitti_detections(os.path.join(pred, "data")),
+        tracker="iou", interpolate=False,
+        align_fn=video.dataset_align_fn(ds), **kw)
+    n_tracks = {name: len({ln.split()[1] for v in lines.values()
+                           for ln in v})
+                for name, lines in (("iou", iou_lines), ("kf", kf_lines),
+                                    ("frames", frame_lines))}
+    mot = video.score_tracking(frame_lines, ds.labels)["overall"]
+    log(f"offline video MOT: tracks {n_tracks}, lines "
+        f"{sum(map(len, iou_lines.values()))} (iou, couple files), "
+        f"{sum(map(len, memory_lines.values()))} (iou, in memory); frame "
+        f"files' iou arm {mot}")
+    check(n_tracks["iou"] > 0 and n_tracks["kf"] > 0,
+          f"the offline arms made no tracks: {n_tracks}")
+    check(same_tracks(iou_lines, memory_lines), "the offline IoU arm's "
+          "tracks differ from those of the evaluator's in-memory "
+          "detections")
+    res.update(tracks=n_tracks, offline_mota=mot["MOTA"],
+               eval_mota=results["mot"]["overall"]["MOTA"])
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 # kernel_times of the tree in the working directory, timed by the
@@ -2197,6 +2528,12 @@ def main():
         log("phase 12: the Stack model ran at full width")
         families_exact = new_families_cuda_vs_cpu(dev)
         log("phase 13: the one-frame and Stack models agree with the CPU")
+        variants = variants_full_width(dev, counters)
+        log("phase 14: the model variants ran at full width")
+        variants_cuda_vs_cpu(dev)
+        log("phase 15: the model variants agree with the CPU")
+        cli_run = cli_full_width(dev, counters)
+        log("phase 16: the CLI and the offline video MOT ran at full width")
     except PhaseError as exc:
         return fail(str(exc))
     except Exception as exc:                 # a build or launch error
@@ -2254,6 +2591,27 @@ def main():
           f"on {card}")
     print(f"one-frame and Stack card vs CPU (small config): every detection "
           f"box matched within 2e-3, AP held equal: {families_exact}")
+    for name, v in variants.items():
+        print(f"variant {name} pair forward ms (median of {N_TIMED}, full "
+              f"width, B = 1): {v['forward_ms']:.4f}; train step ms "
+              f"{[round(s, 2) for s in v['step_ms']]}, peak device memory "
+              f"{v['peak_mib']:.0f} MiB on {card}")
+    v2 = variants["V2"]
+    print(f"greedy NMS share of V2's forward: {v2['forward_ms']:.4f} ms "
+          f"greedy, {v2['exact_nms_forward_ms']:.4f} ms exact, share "
+          f"{1 - v2['exact_nms_forward_ms'] / v2['forward_ms']:.4f} on "
+          f"{card}")
+    inf = cli_run["infer"]
+    print(f"cli infer fps_pairs: {inf['fps_pairs']:.4f} (median "
+          f"{inf['median_s'] * 1e3:.2f} ms); cli evaluate couples/s "
+          f"{cli_run['couples'] / cli_run['eval_s']:.4f} ({cli_run['couples']}"
+          f" couples, the command's wall time) on {card}")
+    demo = "present, demo ran" if cli_run["matplotlib"] else \
+        "absent, demo skipped"
+    print(f"cli: matplotlib {demo}; overall MOTA evaluate "
+          f"{cli_run['eval_mota']:.4f}, offline iou arm over the frame "
+          f"files {cli_run['offline_mota']:.4f}; offline tracks "
+          f"{cli_run['tracks']}")
     for line in kernel_lines(kern, card):
         print(line)
     # launches in each path's run, and per keyframe (pushes, the first of
@@ -2277,7 +2635,11 @@ def main():
         / STAGE_STEPS[1],
         "stack_forward": stack["forward_launches"][k.symbol],
         "per_stack_evaluated": stack["eval_launches"][k.symbol]
-        / stack["stacks"]}
+        / stack["stacks"],
+        **{f"variant_forward_{name}": v["launches"][k.symbol]
+           for name, v in variants.items()},
+        "per_cli_couple": cli_run["launches"][k.symbol]
+        / cli_run["couples"]}
         for k in counters}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
         "correlation_op": op_launches,

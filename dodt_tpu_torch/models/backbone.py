@@ -17,10 +17,17 @@ kernel (ops/conv_chain.py) unless ``forward`` is called with
 does (``fused = ()`` in train mode, dt_avod.py:389-394). Public layout
 is NHWC; inside, NCHW (channels-last memory on the card, so the
 conv-chain hand-off is a view).
+
+Two variants of the JAX tower: ``pyramid=False`` is the plain VGG
+(encoder only, conv4 resized bilinearly to the decoder stride, no skip
+decoder), and ``norm="gn"`` puts Flax's ``GroupNorm(min(8, ch))`` after
+every conv and up-conv, named ``GroupNorm_{k}`` in Flax's call order;
+with it the tower takes neither the s2d stem's names nor the
+conv-chain kernel (JAX backbone.py:261-271).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -30,6 +37,41 @@ from dodt_tpu_torch.config import FeatureExtractorConfig
 from dodt_tpu_torch.ops.conv_chain import conv_chain
 
 KITTI_IMAGE_MEANS = (92.8403, 97.7996, 93.5843)  # img_feature_extractor.py:8
+
+
+def tower_channels(cfg: FeatureExtractorConfig) -> int:
+    """Channels of a tower's output: conv1's for the pyramid, conv4's
+    for the plain tower."""
+    return cfg.conv1[1] if cfg.pyramid else cfg.conv4[1]
+
+
+class GroupNorm(nn.Module):
+    """Flax ``nn.GroupNorm`` over channels-last (B, ..., C):
+    ``num_groups`` groups, statistics over every axis but the batch in
+    float32 with epsilon 1e-6 (torch's default is 1e-5) and var = E[x^2]
+    - E[x]^2, the result cast back to the input dtype (Flax's compute
+    ``dtype``)."""
+
+    def __init__(self, channels: int, num_groups: int = 1,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        b, c, g = x.shape[0], x.shape[-1], self.num_groups
+        grouped = xf.reshape(b, -1, g, c // g)
+        mean = grouped.mean(dim=(1, 3), keepdim=True)
+        mean2 = (grouped * grouped).mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = (b,) + (1,) * (x.dim() - 2) + (c,)
+        mean = mean.expand(b, 1, g, c // g).reshape(shape)
+        mul = torch.rsqrt(var + self.eps).expand(b, 1, g, c // g
+                                                 ).reshape(shape)
+        return ((xf - mean) * (mul * self.weight) + self.bias).to(x.dtype)
 
 
 class ConvParams(nn.Module):
@@ -62,22 +104,26 @@ class SubpixelConvTranspose(ConvParams):
 
 
 class VggPyramid(nn.Module):
-    """Encoder-decoder pyramid tower: (B, H, W, Cin) -> (B, H/s, W/s,
-    conv1 channels) at the decoder stride s, in the compute dtype."""
+    """Encoder-decoder pyramid tower, or the plain encoder: (B, H, W,
+    Cin) -> (B, H/s, W/s, ``tower_channels(cfg)``) at the decoder stride
+    s, in the compute dtype."""
 
     def __init__(self, cfg: FeatureExtractorConfig, in_channels: int,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if not cfg.pyramid or cfg.norm != "none":
-            raise NotImplementedError(
-                "the port implements the pyramid tower without norm")
         if cfg.decode_stride not in (1, 2):
             raise ValueError(f"decode_stride {cfg.decode_stride}")
+        if cfg.norm not in ("none", "gn"):
+            raise ValueError(f"norm {cfg.norm!r}")
         self.cfg = cfg
         self.dtype = dtype
-        self.s2d_stem = cfg.s2d_stem and cfg.decode_stride == 2
+        self.gn = cfg.norm == "gn"
+        self.s2d_stem = (cfg.s2d_stem and cfg.decode_stride == 2
+                         and cfg.pyramid and not self.gn)
         (n1, ch1), (n2, ch2), (n3, ch3), (n4, ch4) = (
             cfg.conv1, cfg.conv2, cfg.conv3, cfg.conv4)
+        # the norm after each conv, in the order the forward calls them
+        self._norms: List[str] = []
         ci = in_channels
         for i in range(n1):
             if self.s2d_stem:
@@ -89,18 +135,42 @@ class VggPyramid(nn.Module):
             else:
                 self.add_module(f"conv1_{i}", ConvParams(ci, ch1))
             ci = ch1
+        self._add_norms(n1, ch1)
         for name, num, ch in (("conv2", n2, ch2), ("conv3", n3, ch3),
                               ("conv4", n4, ch4)):
             for i in range(num):
                 self.add_module(f"{name}_{i}", ConvParams(ci, ch))
                 ci = ch
+            self._add_norms(num, ch)
+        if not cfg.pyramid:
+            return
         self.upconv3 = SubpixelConvTranspose(ch4, ch3)
         self.pyramid_fusion3_0 = ConvParams(2 * ch3, ch2)
         self.upconv2 = SubpixelConvTranspose(ch2, ch2)
         self.pyramid_fusion2_0 = ConvParams(2 * ch2, ch1)
+        self._add_norms(1, ch3)
+        self._add_norms(2, ch2)
+        self._add_norms(1, ch1)
         if cfg.decode_stride == 1:
             self.upconv1 = SubpixelConvTranspose(ch1, ch1)
             self.pyramid_fusion1_0 = ConvParams(2 * ch1, ch1)
+            self._add_norms(2, ch1)
+
+    def _add_norms(self, num: int, ch: int) -> None:
+        """With ``norm="gn"``, the next ``num`` GroupNorms of ``ch``
+        channels, named as Flax names them."""
+        for _ in range(num if self.gn else 0):
+            name = f"GroupNorm_{len(self._norms)}"
+            self.add_module(name, GroupNorm(ch, min(8, ch)))
+            self._norms.append(name)
+
+    def _norm_relu(self, h: torch.Tensor, norms: Iterator[str]
+                   ) -> torch.Tensor:
+        """ReLU, after the next of ``norms`` with ``norm="gn"``."""
+        if self.gn:
+            norm = getattr(self, next(norms))
+            h = norm(h.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return F.relu(h)
 
     def _params(self, name: str, num: int) -> List[Tuple[torch.Tensor,
                                                          torch.Tensor]]:
@@ -110,16 +180,16 @@ class VggPyramid(nn.Module):
         return [(getattr(self, f"{name}_{i}").weight,
                  getattr(self, f"{name}_{i}").bias) for i in range(num)]
 
-    def _block(self, h: torch.Tensor, name: str, num: int,
-               fused: bool) -> torch.Tensor:
+    def _block(self, h: torch.Tensor, name: str, num: int, fused: bool,
+               norms: Iterator[str]) -> torch.Tensor:
         params = self._params(name, num)
-        if fused and name in self.cfg.fused_interior:
+        if fused and not self.gn and name in self.cfg.fused_interior:
             out = conv_chain(h.permute(0, 2, 3, 1), [w for w, _ in params],
                              [b for _, b in params])
             return out.permute(0, 3, 1, 2)
         for w, b in params:
-            h = F.relu(F.conv2d(h, w.to(self.dtype), b.to(self.dtype),
-                                padding=1))
+            h = self._norm_relu(F.conv2d(h, w.to(self.dtype),
+                                         b.to(self.dtype), padding=1), norms)
         return h
 
     def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
@@ -131,23 +201,33 @@ class VggPyramid(nn.Module):
         pw = (-h.shape[3]) % 8
         if ph or pw:
             h = F.pad(h, (pw, 0, ph, 0))
+        norms = iter(self._norms)
 
-        c1 = self._block(h, "conv1", cfg.conv1[0], fused)
-        c2 = self._block(F.max_pool2d(c1, 2), "conv2", cfg.conv2[0], fused)
-        c3 = self._block(F.max_pool2d(c2, 2), "conv3", cfg.conv3[0], fused)
-        c4 = self._block(F.max_pool2d(c3, 2), "conv4", cfg.conv4[0], fused)
+        c1 = self._block(h, "conv1", cfg.conv1[0], fused, norms)
+        c2 = self._block(F.max_pool2d(c1, 2), "conv2", cfg.conv2[0], fused,
+                         norms)
+        c3 = self._block(F.max_pool2d(c2, 2), "conv3", cfg.conv3[0], fused,
+                         norms)
+        c4 = self._block(F.max_pool2d(c3, 2), "conv4", cfg.conv4[0], fused,
+                         norms)
+        s = cfg.decode_stride
+        if not cfg.pyramid:
+            # half-pixel bilinear, as jax.image.resize "bilinear"
+            f = F.interpolate(c4, size=(h.shape[2] // s, h.shape[3] // s),
+                              mode="bilinear", align_corners=False)
+            return f[:, :, ph // s:, pw // s:].permute(0, 2, 3, 1)
 
-        u3 = F.relu(self.upconv3(c4, self.dtype))
+        u3 = self._norm_relu(self.upconv3(c4, self.dtype), norms)
         f3 = self._block(torch.cat([c3, u3], dim=1), "pyramid_fusion3", 1,
-                         fused)
-        u2 = F.relu(self.upconv2(f3, self.dtype))
+                         fused, norms)
+        u2 = self._norm_relu(self.upconv2(f3, self.dtype), norms)
         f2 = self._block(torch.cat([c2, u2], dim=1), "pyramid_fusion2", 1,
-                         fused)
-        if cfg.decode_stride == 2:
+                         fused, norms)
+        if s == 2:
             return f2[:, :, ph // 2:, pw // 2:].permute(0, 2, 3, 1)
-        u1 = F.relu(self.upconv1(f2, self.dtype))
+        u1 = self._norm_relu(self.upconv1(f2, self.dtype), norms)
         f1 = self._block(torch.cat([c1, u1], dim=1), "pyramid_fusion1", 1,
-                         fused)
+                         fused, norms)
         return f1[:, :, ph:, pw:].permute(0, 2, 3, 1)
 
 

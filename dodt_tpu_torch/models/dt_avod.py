@@ -38,7 +38,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dodt_tpu_torch.config import PipelineConfig
-from dodt_tpu_torch.models.backbone import VggPyramid, preprocess_image
+from dodt_tpu_torch.models.backbone import (GroupNorm, VggPyramid,
+                                             preprocess_image,
+                                             tower_channels)
 from dodt_tpu_torch.ops import boxes as box_ops
 from dodt_tpu_torch.ops import sampling
 from dodt_tpu_torch.ops.losses import weighted_smooth_l1
@@ -47,7 +49,7 @@ from dodt_tpu_torch.ops.anchors import (empty_anchor_mask,
 from dodt_tpu_torch.ops.correlation import corr_bottleneck, disp_grid
 from dodt_tpu_torch.ops.dense_rpn import (build_bev_lattice, dense_bev_rois,
                                           dense_empty_anchor_mask)
-from dodt_tpu_torch.ops.nms import nms_bev_exact, top_k, top_k_prefilter
+from dodt_tpu_torch.ops.nms import nms_bev_mode, top_k, top_k_prefilter
 from dodt_tpu_torch.ops.projection import (project_to_bev,
                                            project_to_image_space,
                                            reorder_boxes_yx)
@@ -175,20 +177,61 @@ class FcTrunk(nn.Module):
                      .to(torch.float32) for i in range(self.n_out))
 
 
-class AvodTrunk(FcTrunk):
-    """Second-stage FC trunk, early fusion: fuse (bev, img) ROI
-    features, then ``FcTrunk``."""
+class AvodTrunk(nn.Module):
+    """Second-stage FC trunk over (bev, img) ROI features, then one
+    linear ``out{i}`` per output branch; computes in ``dtype``, returns
+    f32. ``fusion_type`` (JAX dt_avod.py:134-154):
 
-    def __init__(self, d_in: int, sizes: Sequence[int],
+      early   fuse (bev, img), then ``fc{i}``
+      late    separate ``bev_fc{i}`` and ``img_fc{i}`` stacks, then fuse
+              the last hiddens
+      deep    fuse before every layer; ``bev_fc{i}`` and ``img_fc{i}``
+              both take the fusion, and the last hiddens fuse
+
+    with ``fusion_method`` mean | concat | max (``feature_fuse``). The
+    path-drop weights wb, wi weight the inputs' fusion (and, late, the
+    hiddens'). Dropout follows every hidden layer, one draw per Flax
+    ``nn.Dropout`` call in JAX's order: ``avod_fc.fc{i}`` (early),
+    ``avod_fc.bev_fc{i}`` then ``avod_fc.img_fc{i}`` per layer (late,
+    deep)."""
+
+    def __init__(self, d_bev: int, d_img: int, sizes: Sequence[int],
                  out_dims: Sequence[int], fusion_type: str,
                  fusion_method: str, dtype: torch.dtype, keep_prob: float):
-        if fusion_type != "early":
-            raise NotImplementedError(
-                f"AvodTrunk fusion_type {fusion_type!r}: the port has "
-                "early fusion only")
-        super().__init__(2 * d_in if fusion_method == "concat" else d_in,
-                         sizes, out_dims, dtype, keep_prob)
+        super().__init__()
+        if fusion_type not in ("early", "late", "deep"):
+            raise ValueError(f"fusion_type {fusion_type!r}")
+        self.fusion_type = fusion_type
         self.fusion_method = fusion_method
+        self.dtype = dtype
+        self.keep_prob = keep_prob
+        self.n_hidden = len(sizes)
+        self.n_out = len(out_dims)
+
+        def fused(a: int, b: int) -> int:
+            return a + b if fusion_method == "concat" else a
+
+        d = fused(d_bev, d_img)                  # the fusion's width
+        for i, s in enumerate(sizes):
+            if fusion_type == "early":
+                self.add_module(f"fc{i}", Dense(d, s))
+                d = s
+            elif fusion_type == "deep":
+                self.add_module(f"bev_fc{i}", Dense(d, s))
+                self.add_module(f"img_fc{i}", Dense(d, s))
+                d = fused(s, s)
+            else:
+                self.add_module(f"bev_fc{i}", Dense(d_bev, s))
+                self.add_module(f"img_fc{i}", Dense(d_img, s))
+                d_bev = d_img = s
+                d = fused(s, s)
+        for i, o in enumerate(out_dims):
+            self.add_module(f"out{i}", Dense(d, o))
+
+    def _layer(self, name: str, x: torch.Tensor, rand: Optional[Rand]
+               ) -> torch.Tensor:
+        x = F.relu(getattr(self, name)(x, self.dtype))
+        return dropout(x, self.keep_prob, rand, f"avod_fc.{name}")
 
     def forward(self, bev: torch.Tensor, img: torch.Tensor, wb, wi,
                 rand: Optional[Rand] = None) -> Tuple[torch.Tensor, ...]:
@@ -196,28 +239,28 @@ class AvodTrunk(FcTrunk):
         compute dtype as the Flax module does."""
         if isinstance(wb, torch.Tensor):
             wb, wi = wb.to(self.dtype), wi.to(self.dtype)
-        return super().forward(feature_fuse(
-            bev.to(self.dtype), img.to(self.dtype), wb, wi,
-            self.fusion_method), rand)
-
-
-class GroupNorm1(nn.Module):
-    """GroupNorm with one group over NHWC, Flax's numerics: epsilon 1e-6
-    (torch's default is 1e-5) and var = E[x^2] - E[x]^2."""
-
-    def __init__(self, channels: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dims = tuple(range(1, x.dim()))
-        mean = x.mean(dim=dims, keepdim=True)
-        mean2 = (x * x).mean(dim=dims, keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        bev, img = bev.to(self.dtype), img.to(self.dtype)
+        method = self.fusion_method
+        if self.fusion_type == "late":
+            hb, hi = bev, img
+            for i in range(self.n_hidden):
+                hb = self._layer(f"bev_fc{i}", hb, rand)
+                hi = self._layer(f"img_fc{i}", hi, rand)
+            h = feature_fuse(hb, hi, wb, wi, method)
+        elif self.fusion_type == "deep":
+            h = feature_fuse(bev, img, wb, wi, method)
+            for i in range(self.n_hidden):
+                if i:
+                    h = feature_fuse(hb, hi, 1.0, 1.0, method)
+                hb = self._layer(f"bev_fc{i}", h, rand)
+                hi = self._layer(f"img_fc{i}", h, rand)
+            h = feature_fuse(hb, hi, 1.0, 1.0, method)
+        else:
+            h = feature_fuse(bev, img, wb, wi, method)
+            for i in range(self.n_hidden):
+                h = self._layer(f"fc{i}", h, rand)
+        return tuple(getattr(self, f"out{i}")(h, self.dtype)
+                     .to(torch.float32) for i in range(self.n_out))
 
 
 class Bottleneck(nn.Module):
@@ -228,7 +271,7 @@ class Bottleneck(nn.Module):
         self.Conv_0 = nn.Module()
         self.Conv_0.weight = nn.Parameter(torch.empty(co, ci, 1, 1))
         self.Conv_0.bias = nn.Parameter(torch.zeros(co))
-        self.GroupNorm_0 = GroupNorm1(co)
+        self.GroupNorm_0 = GroupNorm(co)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.Conv_0.weight
@@ -250,7 +293,7 @@ class CorrBottleneck(nn.Module):
         _, d = disp_grid(max_displacement, stride_2)
         self.weight = nn.Parameter(torch.empty(channels, d * d))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.GroupNorm_0 = GroupNorm1(channels)
+        self.GroupNorm_0 = GroupNorm(channels)
 
     def forward(self, feat_a: torch.Tensor, feat_b: torch.Tensor
                 ) -> torch.Tensor:
@@ -260,18 +303,29 @@ class CorrBottleneck(nn.Module):
         return F.relu(self.GroupNorm_0(x))
 
 
-def encode_proposals(rep: str, prop_boxes_3d: torch.Tensor, gp4):
+def encode_proposals(rep: str, prop_boxes_3d: torch.Tensor,
+                     top_anchors: torch.Tensor, gp4) -> torch.Tensor:
+    """Proposals in the regression representation: box_4c corners,
+    box_8c's 24 corner coordinates, or (box_3d) the anchors
+    themselves."""
     if rep in ("box_4c", "box_4ca"):
         return box_ops.box_3d_to_box_4c(prop_boxes_3d, gp4)
-    raise NotImplementedError(f"box representation {rep!r} is not ported")
+    if rep in ("box_8c", "box_8co"):
+        c = box_ops.box_3d_to_box_8c(prop_boxes_3d)
+        return c.reshape(c.shape[:-2] + (24,))
+    return top_anchors
 
 
 def decode_predictions(rep: str, prop_enc, box_offsets, angle_vecs, gp4):
     """Apply the predicted offsets; (pred_boxes_3d, pred_orientations)."""
-    if rep not in ("box_4c", "box_4ca"):
-        raise NotImplementedError(f"box representation {rep!r} is not "
-                                  "ported")
-    boxes = box_ops.box_4c_to_box_3d(prop_enc + box_offsets, gp4)
+    if rep in ("box_4c", "box_4ca"):
+        boxes = box_ops.box_4c_to_box_3d(prop_enc + box_offsets, gp4)
+    elif rep in ("box_8c", "box_8co"):
+        boxes = box_ops.box_8c_to_box_3d((prop_enc + box_offsets).reshape(
+            prop_enc.shape[:-1] + (3, 8)))
+    else:                                            # box_3d
+        boxes = box_ops.anchors_to_box_3d(
+            box_ops.offset_to_anchor(prop_enc, box_offsets), fix_lw=True)
     if angle_vecs is not None:
         return boxes, box_ops.angle_vector_to_orientation(angle_vecs)
     return boxes, boxes[..., 6]
@@ -365,16 +419,18 @@ def _path_drop_masks(rnd: torch.Tensor, p_img: float, p_bev: float):
 
 
 class _TrainCtx:
-    """What the train-mode forward threads through the stages: dropout
-    draws (None: deterministic), per-row path-drop masks and the RPN
-    mini-batch inputs (None: not sampled)."""
+    """What the monolithic forward threads through the stages: dropout
+    draws (None: deterministic), per-row path-drop masks, the RPN
+    mini-batch inputs (None: not sampled), and ``monolithic`` (False
+    for the streaming ``encode_frame``)."""
 
     def __init__(self, rand=None, bev_w=None, img_w=None, train_mode=False,
-                 mb=None):
+                 mb=None, monolithic=False):
         self.rand = rand
         self.bev_w, self.img_w = bev_w, img_w
         self.train_mode = train_mode
         self.mb = mb
+        self.monolithic = monolithic
 
 
 _EVAL = _TrainCtx()
@@ -400,7 +456,8 @@ class DtAvodNet(nn.Module):
         self.bev_vgg_pyr = VggPyramid(m.bev_extractor,
                                       ku.bev_generator.num_slices + 1, dtype)
         self.img_vgg_pyr = VggPyramid(m.img_extractor, 3, dtype)
-        bev_ch, img_ch = m.bev_extractor.conv1[1], m.img_extractor.conv1[1]
+        bev_ch = tower_channels(m.bev_extractor)
+        img_ch = tower_channels(m.img_extractor)
         bch = m.rpn.bottleneck_channels
         self.bev_bottleneck = Bottleneck(bev_ch, bch)
         self.img_bottleneck = Bottleneck(img_ch, bch)
@@ -421,8 +478,9 @@ class DtAvodNet(nn.Module):
         s2 = m.avod.proposal_roi_crop_size ** 2
         if bev_ch != img_ch and m.avod.fusion_method != "concat":
             raise ValueError("mean/max fusion needs equal tower widths")
-        self.avod_fc = AvodTrunk(s2 * bev_ch, m.avod.fc_layer_sizes,
-                                 out_dims, m.avod.fusion_type,
+        self.avod_fc = AvodTrunk(s2 * bev_ch, s2 * img_ch,
+                                 m.avod.fc_layer_sizes, out_dims,
+                                 m.avod.fusion_type,
                                  m.avod.fusion_method, dtype,
                                  m.avod.keep_prob)
         if self.correlates:
@@ -567,8 +625,16 @@ class DtAvodNet(nn.Module):
                 anc, p2_, sh)[1]), crop_size)
             for fm, anc, p2_, sh in zip(img_bottle, int_anchors, p2,
                                         img_shapes)])
-        fused = feature_fuse(bev_sel, img_rois.reshape(b, n_int, -1), bev_w,
-                             img_w, m.rpn.fusion_method)
+        if ctx.monolithic and not two_pass:
+            # the JAX __call__'s single pass fuses the (S, S, C) crops, so
+            # concat interleaves the branches per pixel; its two-pass route
+            # and encode_frame concatenate the flattened crops
+            fused = feature_fuse(bev_sel.reshape(img_rois.shape), img_rois,
+                                 bev_w[..., None, None], img_w[..., None, None],
+                                 m.rpn.fusion_method)
+        else:
+            fused = feature_fuse(bev_sel, img_rois.reshape(b, n_int, -1),
+                                 bev_w, img_w, m.rpn.fusion_method)
         flat = fused.reshape(b * n_int, -1)
         objectness = self.rpn_cls(flat, ctx.rand).reshape(b, n_int, 2)
         rpn_offsets = self.rpn_reg(flat, ctx.rand).reshape(b, n_int, 6)
@@ -591,7 +657,7 @@ class DtAvodNet(nn.Module):
         pre_idx, pre_valid = top_k_prefilter(
             torch.where(nms_valid, obj_scores, -1e9), nms_valid,
             min(4 * k_rpn, k_fuse))
-        keep, top_valid = nms_bev_exact(       # indices: no graph
+        keep, top_valid = nms_bev_mode(m.nms_mode)(  # indices: no graph
             _take(prop_bev_norm.detach(), pre_idx, 1),
             _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
             m.rpn.nms_iou_thresh)
@@ -650,7 +716,7 @@ class DtAvodNet(nn.Module):
 
         prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors, fix_lw=True)
         gp4 = gp.to(torch.float32)[:, None, None, :]
-        prop_enc = encode_proposals(rep, prop_boxes_3d, gp4)
+        prop_enc = encode_proposals(rep, prop_boxes_3d, top_anchors, gp4)
         pred_boxes_3d, pred_orient = decode_predictions(
             rep, prop_enc, box_offsets, angle_vecs, gp4)
 
@@ -659,9 +725,9 @@ class DtAvodNet(nn.Module):
         _, pred_bev_norm = project_to_bev(pred_anchors, ku.bev_extents)
         cls_softmax = torch.softmax(cls_logits, dim=-1)
         final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
-        f_idx, f_valid = nms_bev_exact(pred_bev_norm,
-                                       final_scores_all.detach(), top_valid,
-                                       m.avod.nms_size, m.avod.nms_iou_thresh)
+        f_idx, f_valid = nms_bev_mode(m.nms_mode)(
+            pred_bev_norm, final_scores_all.detach(), top_valid,
+            m.avod.nms_size, m.avod.nms_iou_thresh)
         out = {
             "proposal_boxes_3d": prop_boxes_3d, "proposal_enc": prop_enc,
             "cls_logits": cls_logits, "box_offsets": box_offsets,
@@ -753,7 +819,7 @@ class DtAvodNet(nn.Module):
                   "rand": rand}
         ctx = _TrainCtx(rand=rand if train else None,
                         bev_w=per_frame(bev_mask), img_w=per_frame(img_mask),
-                        train_mode=train_mode, mb=mb)
+                        train_mode=train_mode, mb=mb, monolithic=True)
         enc = self._encode(points.flatten(0, 1),
                            batch["points_valid"].flatten(0, 1),
                            per_frame(gps), batch["image"].flatten(0, 1),
@@ -827,7 +893,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + (hi - lo) * u)
                                                   - 1.0)
                 p.copy_((z * std).to(p.dtype))
-            elif name.endswith("GroupNorm_0.weight"):
+            elif ".GroupNorm_" in name and name.endswith(".weight"):
                 p.fill_(1.0)
             else:
                 p.zero_()
@@ -903,9 +969,6 @@ def compute_losses(cfg: PipelineConfig, outputs: Dict[str, torch.Tensor],
 
     # ---------------- second stage ------------------------------------
     rep = cfg.model.avod.box_representation
-    if rep not in ("box_4c", "box_4ca"):
-        raise NotImplementedError(f"box representation {rep!r} is not "
-                                  "ported")
     top_anchors = outputs["top_anchors"]                  # (B, F, K, 6)
     top_valid = outputs["top_valid"]
     k = top_anchors.shape[2]
@@ -927,7 +990,13 @@ def compute_losses(cfg: PipelineConfig, outputs: Dict[str, torch.Tensor],
 
     gt_best = _take(gt_boxes, gt_index, 2)                # (B, F, K, 7)
     gp4 = batch["ground_plane"].to(torch.float32)[:, None, None, :]
-    off_gt = box_ops.box_3d_to_box_4c(gt_best, gp4) - outputs["proposal_enc"]
+    # regression targets in the configured representation
+    prop_enc = outputs["proposal_enc"]
+    if rep == "box_3d":
+        gt_enc = box_ops.box_3d_to_anchor(gt_best, ortho_rotate=True)
+        off_gt = box_ops.anchor_to_offset(prop_enc, gt_enc)
+    else:
+        off_gt = encode_proposals(rep, gt_best, None, gp4) - prop_enc
     avod_reg = (weighted_smooth_l1(outputs["box_offsets"], off_gt, posw)
                 .sum(-1) * lw.reg_loss_weight / num_pos)
     ang_pred = outputs["angle_vectors"]

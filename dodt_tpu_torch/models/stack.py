@@ -42,7 +42,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dodt_tpu_torch.config import PipelineConfig
-from dodt_tpu_torch.models.backbone import VggPyramid, preprocess_image
+from dodt_tpu_torch.models.backbone import (VggPyramid, preprocess_image,
+                                             tower_channels)
 from dodt_tpu_torch.models.dt_avod import (Bottleneck, FcTrunk, MlpHead,
                                            Rand, _path_drop_masks, _resize_to,
                                            _take, anchor_valid_mask,
@@ -54,7 +55,7 @@ from dodt_tpu_torch.ops.anchors import tile_anchors_3d
 from dodt_tpu_torch.ops.dense_rpn import build_bev_lattice
 from dodt_tpu_torch.ops.iou import aligned_iou_matrix
 from dodt_tpu_torch.ops.losses import weighted_smooth_l1
-from dodt_tpu_torch.ops.nms import nms_bev_exact, top_k_prefilter
+from dodt_tpu_torch.ops.nms import nms_bev_mode, top_k_prefilter
 from dodt_tpu_torch.ops.projection import (project_to_bev,
                                            project_to_image_space,
                                            reorder_boxes_yx)
@@ -106,7 +107,8 @@ class StackAvodNet(nn.Module):
         self.bev_vgg_pyr = VggPyramid(m.bev_extractor, n_in, dtype)
         self.int_bev_vgg_pyr = VggPyramid(m.bev_extractor, n_in, dtype)
         self.img_vgg_pyr = VggPyramid(m.img_extractor, 3, dtype)
-        bev_ch, img_ch = m.bev_extractor.conv1[1], m.img_extractor.conv1[1]
+        bev_ch = tower_channels(m.bev_extractor)
+        img_ch = tower_channels(m.img_extractor)
         if bev_ch != img_ch:
             raise ValueError("the Stack model's mean fusion needs equal "
                              "tower widths")
@@ -242,7 +244,7 @@ class StackAvodNet(nn.Module):
         pre_idx, pre_valid = top_k_prefilter(
             torch.where(anchor_valid, obj_scores, -1e9), anchor_valid,
             min(4 * k_rpn, n_anchors))
-        keep, top_valid = nms_bev_exact(        # indices: no graph
+        keep, top_valid = nms_bev_mode(m.nms_mode)(  # indices: no graph
             _take(prop_bev_norm.detach(), pre_idx, 1),
             _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
             m.rpn.nms_iou_thresh)
@@ -296,10 +298,9 @@ class StackAvodNet(nn.Module):
         cls_softmax = torch.softmax(cls_logits, dim=-1)
         final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
         top_valid_bf = top_valid[:, None].expand(b, f, k)
-        f_idx, f_valid = nms_bev_exact(pred_bev_norm,
-                                       final_scores_all.detach(),
-                                       top_valid_bf, m.avod.nms_size,
-                                       m.avod.nms_iou_thresh)
+        f_idx, f_valid = nms_bev_mode(m.nms_mode)(
+            pred_bev_norm, final_scores_all.detach(), top_valid_bf,
+            m.avod.nms_size, m.avod.nms_iou_thresh)
         coexist = torch.softmax(coexist_logits, dim=-1)[..., 1]
         return {
             "anchors": anchors, "anchor_valid": anchor_valid,

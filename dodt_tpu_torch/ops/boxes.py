@@ -5,6 +5,7 @@ everywhere).
   box_3d : [x, y, z, l, w, h, ry]       camera frame, y = bottom face
   anchor : [x, y, z, dim_x, dim_y, dim_z]  axis-aligned cuboid
   box_4c : [x1..x4, z1..z4, h1, h2]     4 ground corners + 2 heights
+  box_8c : (..., 3, 8) corner matrix
 """
 from __future__ import annotations
 
@@ -69,6 +70,23 @@ def orientation_to_angle_vector(ry: torch.Tensor) -> torch.Tensor:
 def angle_vector_to_orientation(vec: torch.Tensor) -> torch.Tensor:
     """(..., 2) angle vector -> ry (...,)."""
     return torch.atan2(vec[..., 1], vec[..., 0])
+
+
+def box_3d_to_corners(boxes_3d: torch.Tensor) -> torch.Tensor:
+    """box_3d (..., 7) -> corners (..., 3, 8): the bottom face first (x:
+    +,+,-,-; z: +,-,-,+ before rotation), then the top face in the same
+    x/z order, rotated by ry about the camera y axis."""
+    x, y, z, l, w, h, ry = boxes_3d.unbind(-1)
+    l2, w2 = l / 2.0, w / 2.0
+    x_c = torch.stack([l2, l2, -l2, -l2, l2, l2, -l2, -l2], dim=-1)
+    z_c = torch.stack([w2, -w2, -w2, w2, w2, -w2, -w2, w2], dim=-1)
+    zeros = torch.zeros_like(l2)
+    y_c = torch.stack([zeros] * 4 + [-h] * 4, dim=-1)
+    cos_ry, sin_ry = torch.cos(ry)[..., None], torch.sin(ry)[..., None]
+    x_r = cos_ry * x_c + sin_ry * z_c
+    z_r = -sin_ry * x_c + cos_ry * z_c
+    return torch.stack([x_r + x[..., None], y_c + y[..., None],
+                        z_r + z[..., None]], dim=-2)
 
 
 def box_3d_to_box_4c(boxes_3d: torch.Tensor, ground_plane: torch.Tensor
@@ -151,3 +169,40 @@ def box_4c_to_box_3d(boxes_4c: torch.Tensor, ground_plane: torch.Tensor
     ground_y = -(ground_plane[..., 0] * cx + ground_plane[..., 2] * cz
                  + ground_plane[..., 3]) / ground_plane[..., 1]
     return torch.stack([cx, ground_y - h1, cz, l, w, h2 - h1, ry], dim=-1)
+
+
+def box_4c_to_offsets(boxes_4c: torch.Tensor, gt_boxes_4c: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain difference codec."""
+    return gt_boxes_4c - boxes_4c
+
+
+def offsets_to_box_4c(boxes_4c: torch.Tensor, offsets: torch.Tensor
+                      ) -> torch.Tensor:
+    return boxes_4c + offsets
+
+
+def box_3d_to_box_8c(boxes_3d: torch.Tensor) -> torch.Tensor:
+    """box_3d (..., 7) -> (..., 3, 8) corners (``box_3d_to_corners``)."""
+    return box_3d_to_corners(boxes_3d)
+
+
+def box_8c_to_box_3d(boxes_8c: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 8) corners -> box_3d: centroid from the corner mean,
+    bottom y and height from the face means, length and width from the
+    averaged bottom-face edges, ry from their averaged length direction."""
+    x_c, y_c, z_c = boxes_8c[..., 0, :], boxes_8c[..., 1, :], \
+        boxes_8c[..., 2, :]
+    cx = x_c.mean(-1)
+    cz = z_c.mean(-1)
+    y_bottom = y_c[..., 0:4].mean(-1)
+    h = y_bottom - y_c[..., 4:8].mean(-1)
+    # bottom-face edges 0-3 / 1-2 are length edges, 0-1 / 3-2 width edges
+    lx1, lz1 = x_c[..., 0] - x_c[..., 3], z_c[..., 0] - z_c[..., 3]
+    lx2, lz2 = x_c[..., 1] - x_c[..., 2], z_c[..., 1] - z_c[..., 2]
+    wx1, wz1 = x_c[..., 0] - x_c[..., 1], z_c[..., 0] - z_c[..., 1]
+    wx2, wz2 = x_c[..., 3] - x_c[..., 2], z_c[..., 3] - z_c[..., 2]
+    l = (torch.hypot(lx1, lz1) + torch.hypot(lx2, lz2)) / 2.0
+    w = (torch.hypot(wx1, wz1) + torch.hypot(wx2, wz2)) / 2.0
+    ry = torch.atan2(-(lz1 + lz2) / 2.0, (lx1 + lx2) / 2.0)
+    return torch.stack([cx, y_bottom, cz, l, w, h, ry], dim=-1)

@@ -32,12 +32,31 @@ FLAGSHIP = FeatureExtractorConfig(conv1=(2, 8), conv2=(2, 8), conv3=(2, 16),
     (dataclasses.replace(FLAGSHIP, s2d_stem=False, s2d_interior=False,
                          decode_stride=1, fused_interior=()),
      (1, 44, 42, 6)),
+    # the plain tower: conv4 resized 4x (decode stride 2) and 8x (1) by
+    # jax.image.resize against F.interpolate; the s2d flags do not apply
+    (dataclasses.replace(FLAGSHIP, pyramid=False), (1, 44, 42, 6)),
+    (dataclasses.replace(FLAGSHIP, pyramid=False, decode_stride=1),
+     (2, 36, 50, 3)),
+    # GroupNorm(min(8, ch)) after every conv and up-conv, GroupNorm_{k}
+    # in Flax's call order; no s2d stem and no conv-chain block
+    (dataclasses.replace(FLAGSHIP, norm="gn"), (1, 44, 42, 6)),
+    (dataclasses.replace(FLAGSHIP, norm="gn", decode_stride=1),
+     (2, 36, 50, 3)),
+    (dataclasses.replace(FLAGSHIP, norm="gn", pyramid=False, conv4=(2, 4)),
+     (1, 44, 42, 6)),
 ])
 def test_vgg_pyramid_matches_jax(cfg, shape):
     rng = np.random.RandomState(0)
     x = rng.randn(*shape).astype(np.float32)
     jt = jbb.VggPyramid(cfg, dtype=jnp.float32)
-    params = jt.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    # seeded weights of the Flax tree's shapes; every leaf random (a
+    # GroupNorm's too), so a misnamed leaf of the same shape shows
+    shapes = jax.eval_shape(jt.init, jax.random.PRNGKey(1),
+                            jnp.asarray(x))["params"]
+    params = jax.tree_util.tree_map(
+        lambda s: (rng.randn(*s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+                   if len(s.shape) > 1 else 1.0 + 0.1 * rng.randn(*s.shape)
+                   ).astype(np.float32), shapes)
     want = np.asarray(jax.jit(jt.apply)({"params": params}, jnp.asarray(x)))
 
     tcfg = port_config.FeatureExtractorConfig(**dataclasses.asdict(cfg))

@@ -93,7 +93,13 @@ PORTED_HOST_MODULES = (
     "dodt_tpu_torch.data.tracking", "dodt_tpu_torch.eval.kitti_ap",
     "dodt_tpu_torch.eval.kitti_writer", "dodt_tpu_torch.native",
     "dodt_tpu_torch.tracking.iou_tracker", "dodt_tpu_torch.tracking.moi",
-    "dodt_tpu_torch.tracking.mot_eval", "dodt_tpu_torch.utils.np_iou")
+    "dodt_tpu_torch.tracking.mot_eval", "dodt_tpu_torch.utils.np_iou",
+    # the entry points and their host copies
+    "dodt_tpu_torch.cli", "dodt_tpu_torch.entry",
+    "dodt_tpu_torch.runtime.video", "dodt_tpu_torch.viz",
+    "dodt_tpu_torch.eval.reporting", "dodt_tpu_torch.tracking.kalman",
+    "dodt_tpu_torch.tracking.scenarios",
+    "dodt_tpu_torch.utils.format_checker")
 
 
 @pytest.mark.parametrize("probe", ["jax", "flax", "orbax", "optax",

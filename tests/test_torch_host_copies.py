@@ -739,3 +739,221 @@ def test_get_clusters_over_both_new_datasets(fixture_roots, object_roots):
         assert_same(tclusters.get_clusters(
             tcls(config_from_json(cfg).dataset, split="trainval"), cfg),
             want)
+
+
+# ---------------------------------------------------------------------------
+# The entry points' host copies: format checker, reporting, viz, the Kalman
+# tracker, the MOT scenarios and the offline video MOT, equal on seeded
+# inputs (viz: the decoded PNG pixels).
+
+from dodt_tpu import viz as jviz
+from dodt_tpu.eval import reporting as jrep
+from dodt_tpu.runtime import video as jvideo
+from dodt_tpu.tracking import kalman as jkalman
+from dodt_tpu.tracking import scenarios as jscen
+from dodt_tpu.utils import format_checker as jfmt
+from dodt_tpu_torch import viz as tviz
+from dodt_tpu_torch.eval import reporting as trep
+from dodt_tpu_torch.runtime import video as tvideo
+from dodt_tpu_torch.tracking import kalman as tkalman
+from dodt_tpu_torch.tracking import scenarios as tscen
+from dodt_tpu_torch.utils import format_checker as tfmt
+
+
+def _outcome(fn, *args):
+    try:
+        return ("ok", fn(*args))
+    except Exception as e:                # the error's type and text
+        return (type(e).__name__, str(e))
+
+
+def test_format_checker_equal():
+    good = {"box_3d": np.zeros((4, 7)), "anchor": np.ones((2, 6)),
+            "box_4c": np.zeros((3, 10)), "box_8c": np.zeros((5, 3, 8)),
+            "bev_box": np.zeros((2, 4))}
+    bad_3d = np.zeros((1, 7))
+    bad_3d[0, 3] = -1
+    cases = [(name, x) for name, x in good.items()] + [
+        ("box_3d", np.zeros((4, 6))), ("box_3d", bad_3d),
+        ("anchor", np.zeros((2, 6))), ("box_4c", np.zeros((3, 9))),
+        ("box_8c", np.zeros((5, 8, 3))), ("bev_box", np.zeros((2, 5)))]
+    for name, x in cases:
+        got = _outcome(getattr(tfmt, f"check_{name}"), x)
+        want = _outcome(getattr(jfmt, f"check_{name}"), x)
+        assert got[0] == want[0] and str(got[1]) == str(want[1]), name
+    assert issubclass(tfmt.FormatError, ValueError)
+
+
+def _results(step, ap3, mota, health):
+    r = {"step": step,
+         "ap": {m: {"easy": ap3 + 1, "moderate": ap3, "hard": ap3 - 1}
+                for m in ("AP_3D", "AP_BEV", "AP_2D")},
+         "mot": {"overall": {"MOTA": mota}}}
+    if health:
+        r["val_health"] = {"val_losses": {"total": 0.5 + step / 100},
+                           "proposal_recall": {"iou_0.5": 0.25}}
+    return r
+
+
+def _pixels(path):
+    import matplotlib.image
+    return matplotlib.image.imread(path)
+
+
+def test_reporting_equal(tmp_path):
+    out = tmp_path / "eval"
+    out.mkdir()
+    for i, (step, ap3) in enumerate([(30, 41.5), (10, 12.25), (20, 55.0)]):
+        with open(out / f"results_{step}.json", "w") as f:
+            json.dump(_results(step, ap3, 60.0 + i, health=i > 0), f)
+    metrics = tmp_path / "train_metrics.jsonl"
+    metrics.write_text('{"step": 10, "total": 2.5}\n\n{"step": 5, '
+                       '"total": 3.0}\n{"step": 20, "tot')   # cut tail
+    results = trep.load_results(str(out))
+    assert_same(results, jrep.load_results(str(out)))
+    for k in (1, 5):
+        assert_same(trep.top_checkpoints(results, "AP_BEV", "hard", k),
+                    jrep.top_checkpoints(results, "AP_BEV", "hard", k))
+    tm = trep.load_train_metrics(str(metrics))
+    assert_same(tm, jrep.load_train_metrics(str(metrics)))
+    assert trep.load_train_metrics(str(tmp_path / "none.jsonl")) == []
+    for train_metrics in (None, tm):
+        assert trep.format_table(results, train_metrics) == \
+            jrep.format_table(results, train_metrics)
+    np.testing.assert_array_equal(
+        _pixels(trep.plot_ap(results, str(tmp_path / "t.png"))),
+        _pixels(jrep.plot_ap(results, str(tmp_path / "j.png"))))
+
+
+def test_viz_equal(tmp_path):
+    """Every drawing: the same PNG pixels."""
+    rng = np.random.RandomState(5)
+    bev = rng.rand(70, 80, 6).astype(np.float32)
+    boxes = np.array([[0.0, 1.6, 3.0, 3.9, 1.6, 1.5, 0.3],
+                      [1.0, 1.6, 5.0, 3.9, 1.6, 1.5, -1.1]])
+    img = rng.randint(0, 255, (100, 300, 3)).astype(np.uint8)
+    pts = rng.rand(2000, 4).astype(np.float32) * [8, 3, 7, 1]
+    calls = [
+        ("draw_bev", (bev, [[-4, 4], [-3, 3], [0, 7]]),
+         {"gt_boxes": boxes, "pred_boxes": boxes, "scores": [0.9, 0.4]}),
+        ("draw_image_boxes", (img, [(10, 10, 60, 60)], [0.5]), {}),
+        ("draw_point_cloud_3d", (pts,),
+         {"gt_boxes": boxes, "pred_boxes": boxes,
+          "track_ids": np.array([0, 3])}),
+        ("draw_point_cloud_3d", (pts,),
+         {"pred_boxes": boxes[:1], "scores": [0.7]})]
+    for i, (name, args, kw) in enumerate(calls):
+        got = getattr(tviz, name)(*args, path=str(tmp_path / f"t{i}.png"),
+                                  **kw)
+        want = getattr(jviz, name)(*args, path=str(tmp_path / f"j{i}.png"),
+                                   **kw)
+        np.testing.assert_array_equal(_pixels(got), _pixels(want),
+                                      err_msg=name)
+
+
+def test_scenarios_equal():
+    """The scenario generators bit for bit, and the MoI tracking run
+    over the birth/death scenario."""
+    for kw in ({}, {"n_frames": 20, "noise": 0.1, "seed": 3}):
+        assert_same(tscen.hard_mot_scenario(**kw),
+                    jscen.hard_mot_scenario(**kw))
+    for kw in ({}, {"n_frames": 21, "tau": 3, "seed": 2}):
+        got = tscen.birth_death_scenario(**kw)
+        assert_same(got, jscen.birth_death_scenario(**kw))
+        gt, couples = got
+        n = len(gt)
+        assert_same(tscen.run_moi_tracking(gt, couples, n),
+                    jscen.run_moi_tracking(gt, couples, n))
+    poses = tscen.ego_poses(6, speed=1.5)
+    assert_same(poses, jscen.ego_poses(6, speed=1.5))
+    boxes = tscen.hard_mot_scenario(n_frames=4)[1][2]
+    b = np.stack([d["box_3d"] for d in boxes])
+    assert_same(tscen.make_ego_fn(poses)(1, 2, b),
+                jscen.make_ego_fn(poses)(1, 2, b))
+    assert_same(tscen.project_box(b[0]), jscen.project_box(b[0]))
+
+
+@pytest.mark.parametrize("ego", [False, True])
+def test_kf_pipeline_equal(ego):
+    _, dets = jscen.hard_mot_scenario(n_frames=24, seed=1)
+    ego_fn = jscen.make_ego_fn(jscen.ego_poses(24, speed=1.0)) if ego \
+        else None
+    for kw in ({}, {"iou_threshold": 0.1, "max_misses": 1, "min_hits": 3}):
+        assert_same(tkalman.kf_pipeline(dets, ego_fn=ego_fn, **kw),
+                    jkalman.kf_pipeline(dets, ego_fn=ego_fn, **kw))
+
+
+def _video_dets(scene, frames):
+    return {0: {f: [{"box_3d": np.asarray(b, float), "score": 0.9,
+                     "bbox_2d": np.array([100.0, 100, 180, 160]),
+                     "type": "Car", "offsets": np.zeros(3),
+                     "coexist": 1.0}
+                    for _, b in scene.camera_boxes_at(f)] for f in frames}}
+
+
+@pytest.mark.parametrize("tracker", ["iou", "kf"])
+def test_run_video_pipeline_equal(tmp_path, tracker):
+    """Both arms, with and without the ego callbacks built from each
+    package's own dataset, and the MOT scores of the lines."""
+    root = str(tmp_path / "kitti")
+    jsynth.write_tracking_fixture(root, num_videos=1, num_frames=7,
+                                  ego_speed=2.0, num_cars=3, seed=4)
+    cfg = jcfg.unittest_pipeline()
+    cfg.dataset.dataset_dir = root
+    cfg.dataset.video_train_ids = (0,)
+    jds = jtracking.KittiTrackingDataset(cfg.dataset, split="trainval")
+    tds = ttracking.KittiTrackingDataset(config_from_json(cfg).dataset,
+                                         split="trainval")
+    scene = jsynth.SyntheticScene(0, 7, num_cars=3, seed=4, ego_speed=2.0)
+    for cb in (False, True):
+        kw = dict(tracker=tracker, stride=3, sigma_iou=0.01, t_min=2)
+        tkw, jkw = dict(kw), dict(kw)
+        if cb:
+            tkw.update(align_fn=tvideo.dataset_align_fn(tds),
+                       ego_fn=tvideo.dataset_ego_fn(tds))
+            jkw.update(align_fn=jvideo.dataset_align_fn(jds),
+                       ego_fn=jvideo.dataset_ego_fn(jds))
+        got = tvideo.run_video_pipeline(_video_dets(scene, (0, 3, 6)), **tkw)
+        want = jvideo.run_video_pipeline(_video_dets(scene, (0, 3, 6)),
+                                         **jkw)
+        assert got == want, cb
+        assert got[0] or not cb         # the ego-aligned runs keep tracks
+        assert_same(tvideo.score_tracking(got, tds.labels),
+                    jvideo.score_tracking(want, jds.labels))
+
+
+def test_video_file_loaders_equal(tmp_path):
+    """load_kitti_detections and load_couple_detections over the same
+    files, and the offline IoU run scoring like the in-memory one on
+    the hard scenario (tests/test_video_pipeline.py's check)."""
+    n = 16
+    gt, dets = tscen.hard_mot_scenario(n_frames=n)
+    couples_dir, frames_dir = tmp_path / "couples", tmp_path / "frames"
+    couples_dir.mkdir()
+    frames_dir.mkdir()
+    for f in range(n - 1):
+        twriter.write_kitti_file(
+            str(couples_dir / f"00{f:04d}_00{f + 1:04d}.txt"),
+            twriter.couple_detections_to_lines({f: dets[f],
+                                                f + 1: dets[f + 1]}))
+    for f in range(n):
+        with open(frames_dir / f"00{f:04d}.txt", "w") as fh:
+            for d in dets[f]:
+                x, y, z, l, w, h, ry = d["box_3d"]
+                fh.write(f"Car -1 -1 -10 100.0 100.0 180.0 160.0 {h} {w} "
+                         f"{l} {x} {y} {z} {ry} {d['score']}\n")
+    assert_same(tvideo.load_kitti_detections(str(frames_dir)),
+                jvideo.load_kitti_detections(str(frames_dir)))
+    loaded = tvideo.load_couple_detections(str(couples_dir))
+    assert_same(loaded, jvideo.load_couple_detections(str(couples_dir)))
+
+    def score(seq):
+        tracks = ttracker.track_through_ious(
+            seq, high_threshold=0.85, iou_threshold=0.005, t_min=3, ttl=4)
+        return tmot.evaluate_tracking(gt, tscen.tracks_to_pred_frames(
+            tracks, n))
+
+    r_mem = score(dets)
+    r_file = score([loaded[0].get(f, []) for f in range(n)])
+    for k in ("MOTA", "IDS", "FN", "FP", "MT", "ML"):
+        assert r_mem[k] == r_file[k], k

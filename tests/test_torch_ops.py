@@ -270,6 +270,103 @@ def test_exact_nms_matches_jax(thresh, max_out):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+@pytest.mark.parametrize("mode", ["greedy", "fast"])
+@pytest.mark.parametrize("thresh,max_out", [(0.3, 40), (0.01, 20),
+                                            (0.5, 150)])
+def test_nms_modes_match_jax(mode, thresh, max_out):
+    """The greedy oracle (nms_bev) and fast NMS (nms_bev_fast) against
+    JAX: the same indices and validity on boxes with exact score ties
+    (lower index first), padding slots included, and per row under
+    batched leading axes."""
+    rng = np.random.RandomState(12)
+    n = 200
+    lo = rng.rand(n, 2)
+    bx = np.concatenate([lo, lo + rng.uniform(0.02, 0.2, (n, 2))],
+                        -1).astype(np.float32)
+    scores = np.round(rng.rand(n), 2).astype(np.float32)   # many ties
+    valid = rng.rand(n) > 0.2
+    fn_t, fn_j = tnms.nms_bev_mode(mode), jnms.nms_bev_mode(mode)
+    rows = [(bx, scores, valid), (bx[::-1].copy(), scores[::-1].copy(),
+                                  valid[::-1].copy())]
+    gi, gv = fn_t(*(t(np.stack(a)) for a in zip(*rows)), max_out, thresh)
+    for r, (b_, s_, v_) in enumerate(rows):
+        wi, wv = fn_j(jnp.asarray(b_), jnp.asarray(s_), jnp.asarray(v_),
+                      max_out, thresh)
+        np.testing.assert_array_equal(gv[r].numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(gi[r].numpy(), np.asarray(wi))
+    # at full capacity greedy keeps exactly the fixpoint's set, fast a
+    # subset of it
+    fi, fv = fn_t(t(bx), t(scores), t(valid), n, thresh)
+    ei, ev = tnms.nms_bev_exact(t(bx), t(scores), t(valid), n, thresh)
+    kept, exact = set(fi[fv].tolist()), set(ei[ev].tolist())
+    assert kept == exact if mode == "greedy" else kept < exact
+
+
+def test_nms_bev_mode_rejects_unknown_modes():
+    assert tnms.nms_bev_mode("exact") is tnms.nms_bev_exact
+    with pytest.raises(ValueError) as got:
+        tnms.nms_bev_mode("Greedy")
+    with pytest.raises(ValueError) as want:
+        jnms.nms_bev_mode("Greedy")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.fixture(scope="module")
+def nms_model_inputs(tmp_path_factory):
+    """test_torch_variants.py's fixture config and one couple, and
+    seeded weights of its tree (the NMS mode changes no parameter)."""
+    from dodt_tpu.data import synthetic, tracking
+    import test_torch_variants as tv
+
+    root = str(tmp_path_factory.mktemp("kitti_nms_modes"))
+    synthetic.write_tracking_fixture(root, num_videos=1, num_frames=4,
+                                     ego_speed=1.0)
+    cfg = tv.base_config(root)
+    ds = tracking.KittiTrackingDataset(cfg.dataset, split="train")
+    batch = {k: np.asarray(v) for k, v in ds.next_batch(
+        1, shuffle=False, augment=False).items() if not isinstance(v, list)}
+    jmodel = jdt.DtAvodNet(cfg=cfg, cluster_sizes=tv.CAR)
+    shapes = jax.eval_shape(lambda b: jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, b, train=False, mode="val"),
+        tv._jb(batch))["params"]
+    return cfg, batch, tv.seeded_params(shapes, 0)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "fast", "typo"])
+def test_forward_honours_nms_mode(mode, nms_model_inputs):
+    """DtAvodNet and StackAvodNet pick their NMS by the config's
+    nms_mode as JAX does: every output of the val forward against JAX's
+    with "greedy" and "fast" (test_torch_variants.py's harness), and an
+    unknown mode raises before any NMS runs."""
+    import copy
+    from dodt_tpu_torch.convert import config_from_json
+    from dodt_tpu_torch.models import stack as tstack
+    from test_torch_forward import KEYS
+    import test_torch_variants as tv
+
+    cfg0, batch, params = nms_model_inputs
+    cfg = copy.deepcopy(cfg0)
+    cfg.model.nms_mode = mode
+    if mode == "typo":
+        for net in (tdt.DtAvodNet(config_from_json(cfg), tv.CAR),
+                    tstack.StackAvodNet(config_from_json(cfg), tv.CAR)):
+            tdt.init_params(net, torch.Generator().manual_seed(0))
+            with pytest.raises(ValueError, match="nms_mode"):
+                net.eval()(tv._tb(batch), mode="val")
+        return
+    want, got, _, model = tv.run_variant(cfg, tv.CAR, batch, params=params)
+    for key in sorted(KEYS):
+        tv.assert_output_matches(key, want, got)
+    # greedy picks the default's boxes (its empty slots hold index 0);
+    # fast picks others on this batch
+    model.cfg.model.nms_mode = "exact"
+    exact = model(tv._tb(batch), mode="val")
+    same = (torch.equal(exact["top_valid"], got["top_valid"])
+            and torch.equal(exact["top_anchors"], got["top_anchors"])
+            and torch.equal(exact["final_valid"], got["final_valid"]))
+    assert same == (mode == "greedy")
+
+
 # ---------------------------------------------------------------- warp
 
 def test_warp_matches_jax_gather4():

@@ -45,6 +45,7 @@ from dodt_tpu_torch import convert
 from dodt_tpu_torch.convert import config_from_json, flax_to_state_dict
 from dodt_tpu_torch.data import stack as tstack_data
 from dodt_tpu_torch.models import stack as tstack
+from dodt_tpu_torch.ops import nms as tnms
 from dodt_tpu_torch.runtime import trainer as ttrain
 from dodt_tpu_torch.runtime.evaluator import Evaluator
 from test_torch_evaluator import (_assert_couple_lines, _assert_frame_lines,
@@ -201,6 +202,52 @@ def test_stack_forward_output_matches_jax(outputs, key):
     else:
         np.testing.assert_allclose(g, w, rtol=1e-5,
                                    atol=1e-3 if key in LOOSE else 2e-5)
+
+
+@pytest.mark.parametrize("mode", ["fast", "greedy"])
+def test_stack_forward_honours_nms_mode(setup, mode, monkeypatch):
+    """With nms_mode "fast" or "greedy" every output of the Stack's val
+    forward matches JAX's StackAvodNet in that mode, at the tolerances
+    above. Both NMS calls (the RPN's and the final per-frame one) take
+    the mode; with "fast" the final call's picks differ from the exact
+    NMS on the same inputs, and the final picks of the whole forward
+    differ from its "exact" forward, so a final NMS left on exact fails
+    here. (JAX is jitted: this route is the lattice one.)"""
+    cfg, params, batch, _ = setup
+    cfg = copy.deepcopy(cfg)
+    cfg.model.nms_mode = mode
+    jmodel = jstack.StackAvodNet(cfg=cfg, cluster_sizes=CLUSTERS)
+    want = jax.jit(lambda p, b: jmodel.apply(
+        {"params": p}, b, train=False, mode="val"))(params, _jb(batch))
+    calls = []
+
+    def spy(m):
+        def nms(*args):
+            calls.append((m, args, tnms.nms_bev_mode(m)(*args)))
+            return calls[-1][2]
+        return nms
+
+    monkeypatch.setattr(tstack, "nms_bev_mode", spy)
+    model = _port(cfg, params).eval()
+    got = model(_tb(batch), mode="val")
+    assert [c[0] for c in calls] == [mode, mode]
+    for key in sorted(STACK_KEYS):
+        w, g = np.asarray(want[key]), got[key].numpy()
+        if key in EXACT or w.dtype == bool or np.issubdtype(w.dtype,
+                                                            np.integer):
+            np.testing.assert_array_equal(g, w, err_msg=key)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=key,
+                                       atol=1e-3 if key in LOOSE else 2e-5)
+    if mode == "fast":
+        _, args, (f_idx, f_valid) = calls[1]
+        e_idx, e_valid = tnms.nms_bev_exact(*args)
+        assert not (torch.equal(e_idx, f_idx)
+                    and torch.equal(e_valid, f_valid))
+        model.cfg.model.nms_mode = "exact"
+        exact = model(_tb(batch), mode="val")
+        assert not (torch.equal(exact["final_indices"], got["final_indices"])
+                    and torch.equal(exact["final_valid"], got["final_valid"]))
 
 
 # ------------------------------------------------------------------ losses
