@@ -89,7 +89,31 @@ and its reason on stdout and stderr, and prints no result:
      installed, demo; then the offline video MOT over evaluate's files:
      the IoU and Kalman arms over the couple files (the IoU arm's tracks
      equal to those from the evaluator's in-memory detections) and the
-     IoU arm over the per-frame files, scored.
+     IoU arm over the per-frame files, scored;
+ 17. the mesh (dodt_tpu_torch.parallel) at full width (cars_dt_tracking,
+     65536 points, phase 7's weights and stream, phase 9's fixture).
+     (a) a (1, 1) mesh over one NCCL rank in this process: 3 Trainer
+     steps against the meshless Trainer's (the first step's losses
+     bit-equal), 3 make_train_step steps each from one state (losses
+     bit-equal, Adam's moments, params and EMA within close_states'
+     bounds of a second meshless step's spread), run_checkpoint_once of
+     the mesh's checkpoint (results JSON equal to the meshless run's),
+     B3 launched in training and B1-B3 6, 1, 1 times per evaluated
+     forward. At size 1 the mesh runs no collective: (a) holds the
+     mesh's code paths, not NCCL's transport. (b) two ranks on the one
+     card over gloo (NCCL refuses two ranks on one GPU; gloo stages CUDA
+     tensors through the host), each against this process's run of the
+     same program: a (2, 1) step at B = 2 (its state against the two
+     couples' gradients averaged in one process, split_step), the (1, 2)
+     TP forward (check_tp_forward: each output within one bf16 ulp,
+     every box matched) and step at B = 1 (the steps in f32; both ranks'
+     states bit-equal, each within close_states' bounds), and the
+     Evaluator with data = 2 (results and files equal); prints each
+     rank's step ms, bytes moved and peak memory;
+ 18. the last ported ops on the card against the CPU (rotated and 3D IoU,
+     the 3D integral image and its query, point projection, the area
+     mask) and the metrics helpers (device_sync, StepTimer,
+     profile_trace) on the card.
 
 Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
 twin's autograd backward) against the twins' autograd, and times B3's
@@ -103,6 +127,14 @@ three times of the one PyTorch call that computes the same function
 time. ``ms`` is what a host-bound caller pays; ``device_ms`` is the
 kernel's own work, so a kernel is compared with its library call by
 ``device_ms``.
+
+    python3 chip_smoke.py --mesh-cards
+
+runs phase 1 and then phase 19 on a host of 4 or more cards (an even
+number), one NCCL rank per card: a (n/2, 2) momentum step, TP forward
+and MESH_STEPS Adam steps and a (n, 1) evaluation against one card
+(mesh_cards), so every collective of the mesh runs over NCCL; its last
+line names the count of cards.
 
     python3 chip_smoke.py --compare-kernels DIR
 
@@ -122,7 +154,8 @@ path that runs it: B1-B3 the streaming slice, with the monolithic
 forward's, the train step's and the evaluation's counts beside it,
 ``evaluate`` per evaluated couple, and the single-frame forward's, per
 single-frame evaluated sample, the Stack forward's and per evaluated
-stack, each variant's forward and per CLI-evaluated couple; B4 its
+stack, each variant's forward, per CLI-evaluated couple, per mesh train
+step and per mesh-evaluated couple (phase 17), each rank's; B4 its
 public ops), error and times;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -2411,6 +2444,850 @@ def cli_full_width(dev, counters):
     return res
 
 
+# ---------------------------------------------------------------- phase 17
+
+MESH_STEPS = 3
+MESH_DEADLINE_S = 600.0
+MESH_CARDS_DEADLINE_S = 300.0
+# a state after a step, mesh against one process, leaf by leaf (params,
+# EMA, the optimiser's moments): the card's backward sums some gradients
+# with atomics, so one process's step is not bit-reproducible; its spread
+# is measured by running the same step again from the same inputs, and
+# the mesh's difference is held to STATE_SPREAD times that spread plus a
+# fraction of the largest value of its kind over the state: 1e-4 for the
+# moments (sums in another order or with atomics: the first BEV conv's
+# bias gradient, a sum over every BEV pixel, differs by 2e-5 of the
+# largest gradient between two runs on an H100, and a leaf whose gradient
+# is rounding noise, such as the bottleneck convs' biases ahead of a
+# one-group GroupNorm, changes wholly), 1e-6 for params and EMA (their
+# own rounding). Under Adam the params and EMA are held element by
+# element instead: where the gradient (mu) agrees to 1e-3 between the
+# runs, Adam's step agrees to well under 1e-2 lr; where it does not, the
+# gradient is its rounding noise, Adam divides it by its own size, and
+# the element may move by up to lr either way (2 lr)
+STATE_SPREAD = 4.0
+
+
+def smoke_model(cfg):
+    """Phase 7's random weights: init_params from seed 0 with rpn_reg's
+    output layer scaled by 1e-2 (so the second stage sees positives)."""
+    import torch
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+    model = DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS)
+    init_params(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.rpn_reg.out.weight.mul_(1e-2)
+    return model
+
+
+def mesh_cfg(work=None):
+    """cars_dt_tracking at 65536 points; with ``work``, phase 9's
+    evaluation fixture under it (val_health off)."""
+    from dodt_tpu_torch.config import cars_dt_tracking
+    cfg = cars_dt_tracking(data_stride=3 if work else 1)
+    if work:
+        cfg = eval_cfg(cfg, os.path.join(work, "kitti"))
+    cfg.dataset.max_points = 65536
+    cfg.train.checkpoint_interval = MESH_STEPS
+    return cfg
+
+
+def f32_steps(cfg):
+    """``cfg`` with f32 towers and heads, and phase 7's weights for it:
+    the train steps that 17(b) and 19 hold against one process run in
+    f32, so a mesh step differs from one process's only by f32 sums in
+    another order. (In bf16 the heads' gradient GEMMs of another shape
+    round otherwise by about a bf16 ulp: up to 1e-2 of the momentum
+    trace's scale on an H100.)"""
+    import copy
+    scfg = copy.deepcopy(cfg)
+    scfg.model.tower_dtype = "float32"
+    return scfg, smoke_model(scfg)
+
+
+def split_step(cfg, model, batch, n, dev):
+    """One process's momentum step of the ``n``-couple ``batch`` computed
+    couple by couple, as ``n`` data ranks compute it: each couple's
+    gradients from its rows of the step-0 draws (the Trainer's
+    generator, ``shard_draws``), averaged, then the optimiser's update.
+    The card's convolution backward rounds otherwise at another batch
+    size, so this, not the n-couple step, is what a mesh step is held
+    to. Returns {"state": params and optimiser state on the CPU}."""
+    import torch
+    from dodt_tpu_torch.models.dt_avod import generator_draws
+    from dodt_tpu_torch.parallel import mesh as mesh_lib
+    from dodt_tpu_torch.runtime import trainer as tl
+    model = model.to(dev)
+    state = tl.create_train_state(cfg, model)
+    tx = tl.make_optimizer(cfg)
+    loss_fn = tl.model_losses(model)
+    mean = {k: torch.zeros_like(v) for k, v in state.params.items()}
+    for i in range(n):
+        g = torch.Generator(dev)
+        g.manual_seed(tl.SEED << 32)
+        rand = mesh_lib.shard_draws(generator_draws(g), mesh_lib.Mesh(
+            {"data": n, "model": 1}, i, 0, None, None))
+        rows = {k: torch.as_tensor(v[i:i + 1], device=dev)
+                for k, v in batch.items() if isinstance(v, np.ndarray)}
+        params = {k: v.detach().requires_grad_()
+                  for k, v in state.params.items()}
+        out = torch.func.functional_call(
+            model, params, (rows,),
+            {"mode": "train", "train": True, "rand": rand})
+        total, _ = loss_fn(cfg, out, rows, rand)
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
+        for (k, _), gr in zip(params.items(), grads):
+            if gr is not None:
+                mean[k] += gr
+    for k in mean:
+        mean[k] /= n
+    updates, opt_state = tx.update(mean, state.opt_state)
+    new = {k: p + updates[k] for k, p in state.params.items()}
+    cpu = {k: v.detach().cpu() for k, v in new.items()}
+    opt = {k: ({j: t.detach().cpu() for j, t in v.items()}
+               if isinstance(v, dict) else v) for k, v in opt_state.items()}
+    return {"state": {"params": cpu, "opt_state": opt, "ema_params": None}}
+
+
+def eval_scenes():
+    """write_eval_fixture's scenes (seeded, so every process rebuilds
+    the same ones)."""
+    from dodt_tpu_torch.data import synthetic
+    return {vid: synthetic.SyntheticScene(vid, EVAL_FRAMES, ego_speed=s)
+            for vid, s in enumerate(EVAL_SPEEDS)}
+
+
+def mesh_evaluate(cfg, work, ckpt, out, idxs, mesh_shape, device):
+    """launch.evaluate over phase 9's fixture (eval_dataset's flat gray
+    cards), the checkpoint's step MESH_STEPS."""
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet
+    from dodt_tpu_torch.parallel import launch
+    return launch.evaluate(cfg, DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS),
+                           eval_dataset(cfg, eval_scenes()), ckpt, out, idxs,
+                           MESH_STEPS, mesh_shape, device)
+
+
+def card_rank(programs):
+    """One rank of phase 17(b): TF32 off as in the main process, then
+    each (name, fn, args) of ``programs`` with the kernels' counters
+    zeroed just before it; returns each result with its launches and
+    this rank's peak device memory."""
+    import torch
+    from dodt_tpu_torch.ops import conv_chain, correlation, roi_window
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = [conv_chain._KERNEL, roi_window._KERNEL, correlation._KERNEL]
+    card = torch.cuda.is_available()       # False only in a CPU rehearsal
+    out = {}
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    for name, fn, args in programs:
+        for c in counters:
+            c.launches = 0
+        res = fn(*args)
+        res["launches"] = {c.symbol: c.launches for c in counters}
+        out[name] = res
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20 \
+        if card else None
+    return out
+
+
+def close_states(got, want, again, lr, what):
+    """``got`` against ``want`` (TrainState dicts after one step, ``lr``
+    its learning rate), ``again`` the run of ``want``'s program from the
+    same inputs once more, within the bounds above. Returns the largest
+    share of its bound a leaf used and that leaf's name."""
+    import torch
+
+    def leaves(tree):
+        for part in ("params", "ema_params"):
+            for k, v in (tree.get(part) or {}).items():
+                yield part, k, v
+        for part in ("mu", "nu", "trace"):
+            for k, v in tree["opt_state"].get(part, {}).items():
+                yield part, k, v
+    g = {(p, k): v.float() for p, k, v in leaves(got)}
+    a = {(p, k): v.float() for p, k, v in leaves(again)}
+    scale = {}
+    for part, _, w in leaves(want):
+        scale[part] = max(scale.get(part, 0.0), float(w.abs().max()))
+    mu = want["opt_state"].get("mu")
+    worst, where = 0.0, None
+    for part, k, w in leaves(want):
+        w, name = w.float(), f"{part} {k}"
+        d = (g[part, k] - w).abs()
+        floor = (1e-6 if part in ("params", "ema_params") else 1e-4) \
+            * scale[part]
+        if mu is not None and part in ("params", "ema_params"):
+            m = mu[k].float()
+            noise = ((g["mu", k] - m).abs() + (a["mu", k] - m).abs()
+                     > 1e-3 * m.abs())
+            bound = torch.where(noise, 2 * lr, 1e-2 * lr) + floor
+        else:
+            spread = float((a[part, k] - w).abs().max())
+            bound = torch.full_like(w, STATE_SPREAD * spread + floor)
+        share = float((d / bound).max())
+        check(share <= 1, f"{what}: {name} differs by {float(d.max())} "
+              f"(share {share} of its bound)")
+        if share > worst:
+            worst, where = share, name
+    return worst, where
+
+
+def same_states(a, b):
+    """Two ranks' gathered states are bit-equal (params and EMA)."""
+    import torch
+    return all(torch.equal(a[part][k], v) for part in ("params",
+                                                       "ema_params")
+               if b.get(part) is not None for k, v in b[part].items())
+
+
+def close_losses(got, want, rtol, what):
+    for k in LOSS_KEYS:
+        g, w = got[k], want[k]
+        check(abs(g - w) <= rtol * abs(w) + 1e-7,
+              f"{what}: loss {k} {g} against {w}")
+
+
+def mesh_one_rank(dev, counters):
+    """17(a): a (1, 1) mesh over one NCCL rank, against the meshless
+    runs, from phase 7's weights on phase 7's stream:
+      * MESH_STEPS Trainer steps meshless and on the mesh (checkpoints
+        at the last step): the first step's losses bit-equal (one state,
+        one batch, one set of draws), every loss finite, B3 launched and
+        B1 and B2 not. The card's backward sums some gradients with
+        atomics, so two runs part in the last bits from the first update
+        on, and with random weights a last-bit change can swap near-tied
+        proposals: later steps are not compared;
+      * MESH_STEPS steps of make_train_step meshless and on the mesh, each
+        from the meshless trajectory's state: losses bit-equal, Adam's
+        moments, params and EMA within close_states' bounds (a second
+        meshless step from the same state measures the spread);
+      * run_checkpoint_once of the mesh's checkpoint over phase 9's
+        fixture, meshless and on the mesh: results JSON equal, B1-B3
+        launched 6, 1, 1 times per forward.
+    The counters are zeroed just before each run. Returns the numbers
+    phase 17 prints."""
+    import datetime
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from dodt_tpu_torch.models.dt_avod import generator_draws
+    from dodt_tpu_torch.parallel import mesh as mesh_lib
+    from dodt_tpu_torch.runtime.trainer import (SEED, Trainer,
+                                                create_train_state,
+                                                make_train_step)
+
+    work = os.path.join(ROOT, "build", "smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    write_eval_fixture(os.path.join(work, "kitti"), EVAL_SPEEDS, EVAL_FRAMES)
+    cfg = mesh_cfg()
+    model = smoke_model(cfg).to(dev)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "rendezvous"), world_size=1, rank=0,
+        timeout=datetime.timedelta(minutes=5))
+    runs = {}
+    try:
+        mesh = mesh_lib.make_mesh(1, 1)
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            tr = Trainer(cfg, model, SmokeStream(cfg, 7),
+                         os.path.join(work, name), mesh=m, metrics_path=None,
+                         device=dev)
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            _, hist = tr.train(max_steps=MESH_STEPS, log_every=1)
+            torch.cuda.synchronize()
+            launches = {c.symbol: c.launches for c in counters}
+            ms = np.diff([0.0] + [h["wall_s"] for h in hist]) * 1e3
+            runs[name] = {"hist": hist, "ms": ms, "launches": launches,
+                          "reduced": tr.step_fn.reduced_bytes}
+            check(launches[counters[2].symbol] > 0 and
+                  launches[counters[0].symbol] == 0 and
+                  launches[counters[1].symbol] == 0,
+                  f"{name} training launched {launches}")
+            check(all(np.isfinite(h[k]) for h in hist for k in LOSS_KEYS),
+                  f"{name} training: losses not finite {hist}")
+        one, got = runs["meshless"], runs["mesh"]
+        check(all(got["hist"][0][k] == one["hist"][0][k] for k in LOSS_KEYS),
+              f"first Trainer step losses {got['hist'][0]} against "
+              f"{one['hist'][0]}")
+
+        steps = {"meshless": make_train_step(cfg, model),
+                 "mesh": make_train_step(cfg, model, mesh)}
+        stream = SmokeStream(cfg, 7)
+        state = create_train_state(cfg, model)
+        worst, where, same_losses = 0.0, None, True
+        for s in range(MESH_STEPS):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in stream.next_batch(1).items()}
+            out = {}
+            for name, fn in (("meshless", steps["meshless"]),
+                             ("again", steps["meshless"]),
+                             ("mesh", steps["mesh"])):
+                g = torch.Generator(dev)
+                g.manual_seed((SEED << 32) + s)
+                out[name] = fn(state, batch, generator_draws(g))
+            (a, la), (b, lb) = out["meshless"], out["mesh"]
+            same_losses &= all(float(la[k]) == float(lb[k])
+                               for k in LOSS_KEYS)
+            check(same_losses, f"step {s + 1} from one state: losses "
+                  f"{lb} against {la}")
+            share, leaf = close_states(b.__dict__, a.__dict__,
+                                       out["again"][0].__dict__,
+                                       cfg.train.optimizer.initial_lr,
+                                       f"step {s + 1} from one state")
+            if share >= worst:
+                worst, where = share, f"step {s + 1} {leaf}"
+            state = a
+        exact = same_losses and worst == 0.0
+        log(f"17(a) (1, 1) NCCL mesh: {MESH_STEPS} Trainer steps, the first "
+            f"bit-equal to the meshless Trainer's, losses mesh "
+            f"{[h['total'] for h in got['hist']]}, meshless "
+            f"{[h['total'] for h in one['hist']]}; step ms mesh "
+            f"{[round(float(t), 2) for t in got['ms']]}, meshless "
+            f"{[round(float(t), 2) for t in one['ms']]}; launches "
+            f"{got['launches']}; {MESH_STEPS} steps from one state each: "
+            f"losses bit-equal, every leaf within its bound, the largest "
+            f"share of it {worst:.3g} ({where})")
+        del steps, state, a, b, out
+
+        ecfg = mesh_cfg(work)
+        evals = {}
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            for c in counters:
+                c.launches = 0
+            evals[name] = mesh_evaluate(
+                ecfg, work, os.path.join(work, "mesh"),
+                os.path.join(work, f"eval_{name}"), [0],
+                None if m is None else (1, 1), dev)
+            evals[name]["launches"] = {c.symbol: c.launches
+                                       for c in counters}
+        n = len(eval_dataset(ecfg, eval_scenes()).couples)
+        for name, ev in evals.items():
+            # predict_couples([0]) + run_checkpoint_once: n + 1 forwards
+            for c, k in zip(counters, (6, 1, 1)):
+                check(ev["launches"][c.symbol] == k * (n + 1),
+                      f"{name} evaluation launched {ev['launches']}")
+        same = json.dumps(evals["mesh"]["results"]) == \
+            json.dumps(evals["meshless"]["results"])
+        check(same, "the (1, 1) mesh evaluation's results differ from the "
+              "meshless run's")
+    finally:
+        dist.destroy_process_group()
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"17(a) evaluation: results JSON equal to the meshless run's; "
+        f"{n} couples in {evals['mesh']['wall_s']:.3f} s (meshless "
+        f"{evals['meshless']['wall_s']:.3f} s), launches "
+        f"{evals['mesh']['launches']}")
+    return {"step_ms": float(np.median(got["ms"][1:])),
+            "meshless_step_ms": float(np.median(one["ms"][1:])),
+            "reduced_bytes": got["reduced"], "flat_bytes": 4 * (
+                nparams + len(LOSS_KEYS)), "bit_equal": exact,
+            "bound_share": worst, "bound_leaf": where,
+            "train_launches": got["launches"],
+            "eval_launches": evals["mesh"]["launches"], "couples": n,
+            "work": work}
+
+
+def mesh_two_ranks(dev, counters, work):
+    """17(b): two ranks on the one card under gloo (NCCL refuses two
+    ranks on one GPU), each against this process's meshless run of the
+    same program:
+      (2, 1): one momentum step at B = 2 (one couple per rank), in f32
+              (f32_steps): losses against the B = 2 step's, the state
+              against split_step's (the two couples' gradients averaged,
+              so a rank that kept its own gradient would show);
+      (1, 2): the val forward with the FC trunks sharded over the two
+              ranks against the replicated forward (check_tp_forward),
+              and one f32 step at B = 1 against the meshless step;
+      (2, 1): the Evaluator over phase 9's fixture (eval batch 2, one
+              couple per rank per forward) against the meshless one
+              (eval batch 1), from 17(a)'s checkpoint.
+    Each step is held by check_mesh_step: both ranks' gathered states
+    bit-equal, and each within close_states' bounds of one process's.
+    Returns the numbers phase 17 prints."""
+    import copy
+    import dataclasses
+    import torch
+    from dodt_tpu_torch.parallel import launch
+
+    cfg = mesh_cfg()
+    cfg.train.optimizer = dataclasses.replace(cfg.train.optimizer,
+                                              name="momentum")
+    model = smoke_model(cfg)
+    scfg, smodel = f32_steps(cfg)
+    batch2 = SmokeStream(cfg, 7).next_batch(2)
+    batch1 = SmokeStream(cfg, 8).next_batch(1)
+    keys = ("objectness", "rpn_offsets", "top_anchors", "top_valid",
+            "final_boxes_3d", "final_scores", "final_valid")
+    ecfg = mesh_cfg(work)
+    ecfg2 = copy.deepcopy(ecfg)
+    ecfg2.eval.batch_size = 2
+    n_couples = len(eval_dataset(ecfg, eval_scenes()).couples)
+    ckpt = os.path.join(work, "mesh")
+    idxs = [0, 1]
+    want = {
+        "dp_step": launch.train_steps(scfg, smodel, [batch2], device=dev),
+        "dp_split": split_step(scfg, smodel, batch2, 2, dev),
+        "dp_split_again": split_step(scfg, smodel, batch2, 2, dev),
+        "tp_forward": launch.forward(cfg, model, batch1, keys, device=dev),
+        "tp_step": launch.train_steps(scfg, smodel, [batch1], device=dev),
+        "tp_step_again": launch.train_steps(scfg, smodel, [batch1],
+                                            device=dev),
+        "evaluate": mesh_evaluate(ecfg, work, ckpt,
+                                  os.path.join(work, "eval_one"), idxs,
+                                  None, dev)}
+    # a fresh process's first step pays for CUDA's lazy module loading and
+    # cuDNN's and cuBLAS's set-up (17(a)'s first meshless step: seconds):
+    # each rank takes the (2, 1) step once untimed, then again
+    programs = [
+        ("warm_up", launch.train_steps,
+         (scfg, smodel, [batch2], None, (2, 1), dev.type)),
+        ("dp_step", launch.train_steps,
+         (scfg, smodel, [batch2], None, (2, 1), dev.type)),
+        ("tp_forward", launch.forward,
+         (cfg, model, batch1, keys, (1, 2), dev.type)),
+        ("tp_step", launch.train_steps,
+         (scfg, smodel, [batch1], None, (1, 2), dev.type)),
+        ("evaluate", mesh_evaluate,
+         (ecfg2, work, ckpt, os.path.join(work, "eval_two"), idxs, (2, 1),
+          dev.type))]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(card_rank, 2, programs, backend="gloo",
+                         timeout_s=MESH_DEADLINE_S)
+    log(f"17(b) two gloo ranks ran in {time.perf_counter() - t0:.1f} s")
+    res = {"ranks": ranks, "want": want, "couples": n_couples}
+    lr = scfg.train.optimizer.initial_lr
+    for r, rank in enumerate(ranks):
+        check_mesh_step(f"17(b) rank {r} dp_step", rank["dp_step"],
+                        want["dp_step"], want["dp_split"],
+                        want["dp_split_again"], ranks[0]["dp_step"], lr)
+        check_mesh_step(f"17(b) rank {r} tp_step", rank["tp_step"],
+                        want["tp_step"], want["tp_step"],
+                        want["tp_step_again"], ranks[0]["tp_step"], lr)
+        check(any(rank["tp_step"]["sharded"].values()),
+              "the TP rule sharded nothing at full width")
+        check_tp_forward(f"17(b) rank {r}", rank["tp_forward"]["outputs"],
+                         want["tp_forward"]["outputs"])
+        ev = rank["evaluate"]
+        check(json.dumps(ev["results"]) == json.dumps(
+            want["evaluate"]["results"]),
+            f"rank {r}: the data = 2 evaluation's results differ")
+        # each rank forwards one couple of predict_couples' two and of
+        # each of run_checkpoint_once's chunks of two
+        n_fwd = 1 + n_couples // 2
+        for c, k in zip(counters, (6, 1, 1)):
+            check(ev["launches"][c.symbol] == k * n_fwd,
+                  f"rank {r}: {ev['launches']} in {n_fwd} forwards")
+        for name in ("dp_step", "tp_step"):
+            check_step_launches(f"rank {r} {name}", rank[name]["launches"],
+                                counters)
+        log(f"17(b) rank {r}: peak device memory {rank['peak_mib']} MiB,"
+            f" evaluation launches {ev['launches']}, train step launches "
+            f"{rank['dp_step']['launches']}")
+    check(filecmp_tree(os.path.join(work, "eval_one"),
+                       os.path.join(work, "eval_two")),
+          "the data = 2 evaluation's files differ from the meshless run's")
+    return res
+
+
+def check_mesh_step(what, got, one, ref, again, rank0, lr):
+    """A mesh rank's train_steps result against one process's: losses
+    within 1e-3 relative of ``one``'s (the card's backward is not
+    deterministic and rounds otherwise at another batch size), the state
+    within close_states' bounds of ``ref``'s (``again``: the run of
+    ``ref``'s program once more), and the gathered state bit-equal to
+    rank 0's."""
+    d = {k: abs(got["losses"][0][k] - one["losses"][0][k])
+         / max(abs(one["losses"][0][k]), 1e-7) for k in LOSS_KEYS}
+    log(f"{what}: loss relative differences {d}; step ms {got['ms']} "
+        f"(one process {one['ms']}); bytes moved {got['bytes_moved']:.0f},"
+        f" all-reduced {got['reduced_bytes']}")
+    close_losses(got["losses"][0], one["losses"][0], 1e-3, what)
+    share, leaf = close_states(got["state"], ref["state"], again["state"],
+                               lr, what)
+    log(f"{what}: every leaf within its bound, the largest share of it "
+        f"{share:.3g} ({leaf})")
+    check(same_states(got["state"], rank0["state"]),
+          f"{what}: the state differs from rank 0's")
+
+
+def check_tp_forward(what, fw, one):
+    """The val forward of a mesh against the replicated one: each of the
+    RPN's scores and offsets within one bf16 ulp of itself (up to 2^-7 of
+    its size; the heads compute in bf16, and a column block's GEMM may
+    take another cuBLAS kernel than the full one and round an output
+    otherwise) + 1e-5 of their scale, and every top anchor and final box
+    of every couple and frame matched."""
+    import torch
+    for k in ("objectness", "rpn_offsets"):
+        d = np.abs(fw[k] - one[k])
+        scale = float(np.abs(one[k]).max())
+        share = float((d / (2.0 ** -7 * np.abs(one[k]) + 1e-5 * scale))
+                      .max())
+        log(f"{what} TP forward {k}: max_abs_err {float(d.max()):.4g} of "
+            f"{scale:.4g}, the largest share of its bound {share:.3g}")
+        check(share <= 1, f"{what} TP forward {k}: {float(d.max())} of "
+              f"{scale} (share {share} of its bound)")
+    for b in range(fw["top_anchors"].shape[0]):
+        for f in range(fw["top_anchors"].shape[1]):
+            top = matched_fraction(
+                torch.as_tensor(fw["top_anchors"][b, f]),
+                torch.as_tensor(one["top_anchors"][b, f]),
+                torch.as_tensor(fw["top_valid"][b, f]),
+                torch.as_tensor(one["top_valid"][b, f]), 0.05)
+            fin = matched_fraction(
+                torch.as_tensor(fw["final_boxes_3d"][b, f]),
+                torch.as_tensor(one["final_boxes_3d"][b, f]),
+                torch.as_tensor(fw["final_valid"][b, f]),
+                torch.as_tensor(one["final_valid"][b, f]), 0.1)
+            log(f"{what} TP forward couple {b} frame {f}: top_anchors "
+                f"matched {top:.3f}, final boxes matched {fin:.3f}")
+            check(top == 1.0 and fin == 1.0,
+                  f"{what} TP forward couple {b} frame {f}: matched {top}, "
+                  f"{fin}")
+
+
+def check_step_launches(what, got, counters):
+    """A train step launched B3 and neither B1 nor B2."""
+    check(got[counters[2].symbol] > 0 and not got[counters[0].symbol]
+          and not got[counters[1].symbol], f"{what} launched {got}")
+
+
+def filecmp_tree(a, b):
+    """Two directory trees hold the same files, byte for byte."""
+    import filecmp
+    cmp = filecmp.dircmp(a, b)
+    if cmp.left_only or cmp.right_only or cmp.funny_files:
+        return False
+    _, mismatch, errors = filecmp.cmpfiles(a, b, cmp.common_files,
+                                           shallow=False)
+    return not mismatch and not errors and all(
+        filecmp_tree(os.path.join(a, d), os.path.join(b, d))
+        for d in cmp.common_dirs)
+
+
+# ---------------------------------------------------------------- phase 18
+
+def rest_ops_cuda_vs_cpu(dev):
+    """The last ported ops on the card against the CPU at the JAX tests'
+    shapes: rotated and 3D IoU matrices (12 x 9 seeded boxes and the
+    45-degree square pair), the 3D integral image (10 x 8 x 12) and its
+    box query, point projection, the area mask; and the metrics
+    helpers on the card: device_sync waits for queued work, profile_trace
+    records device kernels, StepTimer's device interval ends after the
+    work. (The BEV-border offsets are host numpy code, no device op.)"""
+    import tempfile
+    import torch
+    from dodt_tpu_torch.ops import anchors, iou, projection, voxel
+    from dodt_tpu_torch.utils import metrics
+
+    rng = np.random.RandomState(3)
+
+    def bev(n):
+        return np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                         rng.uniform(1, 5, n), rng.uniform(1, 3, n),
+                         rng.uniform(-np.pi, np.pi, n)], 1).astype(np.float32)
+
+    def b3d(n):
+        b = bev(n)
+        return np.stack([b[:, 0], rng.uniform(0.5, 2, n), b[:, 1], b[:, 2],
+                         b[:, 3], rng.uniform(1, 2, n), b[:, 4]],
+                        1).astype(np.float32)
+
+    worst = {}
+    pairs = [(bev(12), bev(9)),
+             (np.float32([[0, 0, 2, 2, 0]]),
+              np.float32([[0, 0, 2, 2, np.pi / 4]]))]
+    for fn, sets in ((iou.rotated_iou_matrix, pairs),
+                     (iou.iou_3d_matrix, [(b3d(10), b3d(7))])):
+        for a, b in sets:
+            g = fn(torch.as_tensor(a, device=dev), torch.as_tensor(b,
+                                                                   device=dev))
+            c = fn(torch.as_tensor(a), torch.as_tensor(b))
+            e = float((g.cpu() - c).abs().max())
+            worst[fn.__name__] = max(worst.get(fn.__name__, 0.0), e)
+            check(e <= 2e-6, f"{fn.__name__} card vs CPU {e}")
+    grid = rng.randint(0, 3, (10, 8, 12)).astype(np.float32)
+    lo = np.int64([[2, 1, 3], [0, 0, 0]])
+    hi = np.int64([[7, 5, 9], [10, 8, 12]])
+    ig = anchors.integral_image_3d(torch.as_tensor(grid, device=dev))
+    q = anchors.query_integral_3d(ig, torch.as_tensor(lo, device=dev),
+                                  torch.as_tensor(hi, device=dev)).cpu()
+    check(torch.equal(ig.cpu(), anchors.integral_image_3d(
+        torch.as_tensor(grid))), "integral_image_3d card vs CPU")
+    check(q.tolist() == [grid[2:7, 1:5, 3:9].sum(), grid.sum()],
+          f"query_integral_3d on the card {q.tolist()}")
+    pts = np.stack([rng.uniform(-20, 20, 200), rng.uniform(-2, 2, 200),
+                    rng.uniform(5, 60, 200)], 1).astype(np.float32)
+    p2 = np.float32([[721.5, 0, 609.5, 44.9], [0, 721.5, 172.8, 0.2],
+                     [0, 0, 1.0, 0.003]])
+    e, scale = rel_err(projection.project_points_to_image(
+        torch.as_tensor(pts, device=dev), p2).cpu(),
+        projection.project_points_to_image(torch.as_tensor(pts), p2))
+    worst["project_points_to_image"] = e
+    check(e <= 1e-5 * scale, f"project_points_to_image card vs CPU {e}")
+    valid = rng.rand(200) < 0.9
+    ae = ((-4.0, 4.0), (-5.0, 3.0), (0.0, 7.0))
+    gp = np.float32([0.0, -1.0, 0.05, 1.65])
+    m = voxel.points_in_area_mask(torch.as_tensor(pts, device=dev) / 5,
+                                  torch.as_tensor(valid, device=dev), gp, ae)
+    check(torch.equal(m.cpu(), voxel.points_in_area_mask(
+        torch.as_tensor(pts) / 5, torch.as_tensor(valid), gp, ae)),
+        "points_in_area_mask card vs CPU")
+
+    # metrics: a queued 100 ms sleep is over when device_sync returns
+    x = torch.ones(1, device=dev)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SLEEP_CYCLES * 20)
+    metrics.device_sync({"x": [x]})
+    waited = time.perf_counter() - t0
+    timer = metrics.StepTimer()
+    timer.device_start()
+    torch.cuda._sleep(SLEEP_CYCLES * 20)
+    timer.device_stop(x)
+    with tempfile.TemporaryDirectory() as d:
+        with metrics.profile_trace(d):
+            (torch.ones(512, 512, device=dev) @ torch.ones(
+                512, 512, device=dev)).sum().item()
+        with open(os.path.join(d, "trace.json")) as f:
+            trace = json.load(f)
+    kernels = sum(1 for e in trace.get("traceEvents", [])
+                  if e.get("cat") == "kernel")
+    log(f"phase 18: card vs CPU max abs errors {worst}; device_sync waited "
+        f"{waited * 1e3:.1f} ms for the queued sleep, StepTimer device "
+        f"interval {timer.device_times[0] * 1e3:.1f} ms, profile_trace "
+        f"recorded {kernels} device kernels")
+    check(waited >= 0.05 and timer.device_times[0] >= 0.05,
+          "device_sync returned before the queued work ended")
+    check(kernels > 0, "profile_trace recorded no device kernel")
+    return worst
+
+
+# ---------------------------------------------------------------- phase 19
+
+def mesh_cards(dev, counters, n):
+    """Phase 19, run by ``chip_smoke.py --mesh-cards`` on a host of ``n``
+    cards (n even, at least 4) and not in the one-card run: the mesh over
+    NCCL, one rank per card, at full width from phase 7's weights, each
+    program against this process's run of it on card 0:
+      (n/2, 2): one f32 momentum step at B = n/2 (f32_steps;
+                check_mesh_step: losses against one card's B = n/2
+                step, the state against split_step's, every rank's
+                gathered state bit-equal to rank 0's);
+      (n/2, 2): the val forward of those n/2 couples, the FC trunks
+                sharded over 'model', against one card's forward of each
+                couple (check_tp_forward);
+      (n/2, 2): MESH_STEPS Adam steps with the Trainer's draws (each
+                program makes its own process groups, so its first step
+                pays for NCCL's communicator set-up; steps 2 on are the
+                timed ones): losses
+                finite, the first step's within 1e-3 of one card's, and
+                every rank's state bit-equal to rank 0's after the last
+                (later steps are not compared with one card's: the
+                card's backward is not deterministic, and with random
+                weights a last-bit change can swap near-tied proposals);
+      (n, 1):   the Evaluator over phase 9's fixture (eval batch n, one
+                couple per rank per forward) against the meshless one
+                (eval batch 1), from a checkpoint of phase 7's weights:
+                results JSON and files equal.
+    Every collective of the mesh runs here over NCCL: the gradient
+    all-reduces over 'data' and over 'model', the clip's norm, the TP
+    gathers and their backward all-reduces, the broadcast of the
+    replicated state, the evaluator's gathers. Returns the numbers the
+    mode prints."""
+    import copy
+    import dataclasses
+    import shutil
+    import torch
+    from dodt_tpu_torch.parallel import launch
+    from dodt_tpu_torch.runtime.trainer import (CheckpointIO,
+                                                create_train_state)
+
+    nd = n // 2
+    work = os.path.join(ROOT, "build", "smoke_cards")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    write_eval_fixture(os.path.join(work, "kitti"), EVAL_SPEEDS, EVAL_FRAMES)
+    cfg = mesh_cfg()
+    mom = copy.deepcopy(cfg)
+    mom.train.optimizer = dataclasses.replace(cfg.train.optimizer,
+                                              name="momentum")
+    model = smoke_model(cfg)
+    mom, smodel = f32_steps(mom)
+    ckpt = os.path.join(work, "ckpt")
+    CheckpointIO(ckpt).save(MESH_STEPS, create_train_state(cfg, model))
+    batch = SmokeStream(cfg, 7).next_batch(nd)
+    stream = SmokeStream(cfg, 9)
+    adam_batches = [stream.next_batch(nd) for _ in range(MESH_STEPS)]
+    keys = ("objectness", "rpn_offsets", "top_anchors", "top_valid",
+            "final_boxes_3d", "final_scores", "final_valid")
+    ecfg = mesh_cfg(work)
+    ecfg_n = copy.deepcopy(ecfg)
+    ecfg_n.eval.batch_size = n
+    n_couples = len(eval_dataset(ecfg, eval_scenes()).couples)
+    idxs = [0, 1]
+    # this process's first f32 step pays for cuDNN's and cuBLAS's set-up:
+    # it is taken once untimed
+    launch.train_steps(mom, smodel, [batch], device=dev)
+    # each data rank forwards one couple: the reference forwards them one
+    # by one too (a bf16 convolution rounds otherwise at another batch)
+    one = [launch.forward(cfg, model, {k: v[i:i + 1] for k, v in
+                                       batch.items()}, keys, device=dev)
+           for i in range(nd)]
+    want = {
+        "step": launch.train_steps(mom, smodel, [batch], device=dev),
+        "split": split_step(mom, smodel, batch, nd, dev),
+        "split_again": split_step(mom, smodel, batch, nd, dev),
+        "forward": {"outputs": {k: np.concatenate([o["outputs"][k]
+                                                   for o in one])
+                                for k in keys}},
+        "adam": launch.train_steps(cfg, model, adam_batches, device=dev),
+        "evaluate": mesh_evaluate(ecfg, work, ckpt,
+                                  os.path.join(work, "eval_one"), idxs,
+                                  None, dev)}
+    model.cpu()
+    smodel.cpu()
+    shape = (nd, 2)
+    # the first step of a fresh process pays for CUDA's lazy module
+    # loading and the libraries' set-up: each rank takes it once untimed
+    programs = [
+        ("warm_up", launch.train_steps,
+         (mom, smodel, [batch], None, shape, "cuda")),
+        ("step", launch.train_steps,
+         (mom, smodel, [batch], None, shape, "cuda")),
+        ("forward", launch.forward, (cfg, model, batch, keys, shape,
+                                     "cuda")),
+        ("adam", launch.train_steps,
+         (cfg, model, adam_batches, None, shape, "cuda")),
+        ("evaluate", mesh_evaluate,
+         (ecfg_n, work, ckpt, os.path.join(work, "eval_cards"), idxs,
+          (n, 1), "cuda"))]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(card_rank, n, programs, backend="nccl",
+                         timeout_s=MESH_CARDS_DEADLINE_S)
+    log(f"19 {n} NCCL ranks ran in {time.perf_counter() - t0:.1f} s")
+    for r, rank in enumerate(ranks):
+        check_mesh_step(f"19 rank {r} step", rank["step"], want["step"],
+                        want["split"], want["split_again"],
+                        ranks[0]["step"], mom.train.optimizer.initial_lr)
+        check(rank["step"]["bytes_moved"] > 0 and
+              rank["forward"]["bytes_moved"] > 0,
+              f"rank {r}: no bytes moved")
+        check(any(rank["step"]["sharded"].values()),
+              "the TP rule sharded nothing at full width")
+        check_tp_forward(f"19 rank {r}", rank["forward"]["outputs"],
+                         want["forward"]["outputs"])
+        adam = rank["adam"]
+        check(all(np.isfinite(v) for h in adam["losses"]
+                  for v in h.values()), f"rank {r}: Adam losses "
+              f"{adam['losses']}")
+        close_losses(adam["losses"][0], want["adam"]["losses"][0], 1e-3,
+                     f"19 rank {r} Adam step 1")
+        check(same_states(adam["state"], ranks[0]["adam"]["state"]),
+              f"rank {r}: the state after {MESH_STEPS} Adam steps differs "
+              f"from rank 0's")
+        ev = rank["evaluate"]
+        check(json.dumps(ev["results"]) == json.dumps(
+            want["evaluate"]["results"]),
+            f"rank {r}: the data = {n} evaluation's results differ")
+        # one couple per rank in predict_couples' forward and in each of
+        # run_checkpoint_once's chunks of n
+        n_fwd = 1 + -(-n_couples // n)
+        for c, k in zip(counters, (6, 1, 1)):
+            check(ev["launches"][c.symbol] == k * n_fwd,
+                  f"rank {r}: {ev['launches']} in {n_fwd} forwards")
+        for name in ("step", "adam"):
+            check_step_launches(f"rank {r} {name}", rank[name]["launches"],
+                                counters)
+        log(f"19 rank {r}: Adam step ms {adam['ms']} (one card "
+            f"{want['adam']['ms']}), bytes moved per step "
+            f"{adam['bytes_moved']:.0f}, all-reduced "
+            f"{adam['reduced_bytes']}; peak device memory "
+            f"{rank['peak_mib']} MiB; evaluation launches {ev['launches']}")
+    check(filecmp_tree(os.path.join(work, "eval_one"),
+                       os.path.join(work, "eval_cards")),
+          f"the data = {n} evaluation's files differ from the meshless "
+          f"run's")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"ranks": ranks, "want": want, "couples": n_couples}
+
+
+def mesh_cards_main():
+    """``--mesh-cards``: phase 1's build, then phase 19 on every card of
+    the host; prints its numbers, the card's name and power limit, and
+    the device line."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 4 or n % 2:
+        return fail(f"--mesh-cards needs an even number of cards, at "
+                    f"least 4; this host has {n}")
+    sys.path.insert(0, ROOT)
+    try:
+        from dodt_tpu_torch.ops import _cuda, conv_chain, correlation
+        from dodt_tpu_torch.ops import roi_window
+    except ImportError as exc:
+        return fail(f"cannot import the port ({exc}); run it from the "
+                    "repository root")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    counters = [conv_chain._KERNEL, roi_window._KERNEL, correlation._KERNEL]
+    try:
+        t0 = time.perf_counter()
+        lib, _ = _cuda.build()
+        _cuda.load()
+        log(f"phase 1: built {os.path.relpath(lib, ROOT)} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        res = mesh_cards(dev, counters, n)
+        log(f"phase 19: the ({n // 2}, 2) and ({n}, 1) NCCL meshes equal "
+            f"one card")
+    except PhaseError as exc:
+        return fail(str(exc))
+    except Exception as exc:
+        import traceback
+        traceback.print_exc()
+        return fail(f"{type(exc).__name__}: {exc}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        return fail(f"nvidia-smi failed: {smi.stderr}")
+    cards = smi.stdout.strip().splitlines()
+    want = res["want"]
+    for r, rank in enumerate(res["ranks"]):
+        st, adam = rank["step"], rank["adam"]
+        print(f"mesh ({n // 2}, 2) rank {r} of {n} (NCCL, one card each): "
+              f"Adam step ms at B = {n // 2} (bf16, median of steps "
+              f"2-{MESH_STEPS}) {np.median(adam['ms'][1:]):.4f} (one card "
+              f"{np.median(want['adam']['ms'][1:]):.4f}), every step "
+              f"{[round(t, 4) for t in adam['ms']]}, bytes moved per step "
+              f"{adam['bytes_moved']:.0f}; f32 momentum step ms (the first "
+              f"on its process groups) {st['ms'][0]:.4f} (one card "
+              f"{want['step']['ms'][0]:.4f}), bytes moved "
+              f"{st['bytes_moved']:.0f}; TP forward "
+              f"bytes moved {rank['forward']['bytes_moved']:.0f}; "
+              f"evaluation s {rank['evaluate']['wall_s']:.4f} (one card "
+              f"{want['evaluate']['wall_s']:.4f}); launches per step "
+              f"{st['launches']}, per evaluation "
+              f"{rank['evaluate']['launches']}; peak device memory "
+              f"{rank['peak_mib']:.0f} MiB on "
+              f"{cards[r % len(cards)]}")
+    print(cards[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n}}))
+    return 0
+
+
 # ---------------------------------------------------------------- main
 
 # kernel_times of the tree in the working directory, timed by the
@@ -2462,12 +3339,15 @@ def compare_kernels(other):
 
 
 def main():
+    import shutil
     import torch
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; this script runs "
                     "only on a CUDA card")
     if sys.argv[1:2] == ["--compare-kernels"] and len(sys.argv) == 3:
         return compare_kernels(os.path.abspath(sys.argv[2]))
+    if sys.argv[1:] == ["--mesh-cards"]:
+        return mesh_cards_main()
     sys.path.insert(0, ROOT)
     try:
         from dodt_tpu_torch.ops import _cuda, conv_chain, correlation
@@ -2534,6 +3414,13 @@ def main():
         log("phase 15: the model variants agree with the CPU")
         cli_run = cli_full_width(dev, counters)
         log("phase 16: the CLI and the offline video MOT ran at full width")
+        mesh_a = mesh_one_rank(dev, counters)
+        log("phase 17(a): the (1, 1) NCCL mesh equals the meshless runs")
+        mesh_b = mesh_two_ranks(dev, counters, mesh_a["work"])
+        shutil.rmtree(mesh_a["work"], ignore_errors=True)
+        log("phase 17(b): two gloo ranks equal one process")
+        rest_ops_cuda_vs_cpu(dev)
+        log("phase 18: the last ported ops agree with the CPU on the card")
     except PhaseError as exc:
         return fail(str(exc))
     except Exception as exc:                 # a build or launch error
@@ -2612,6 +3499,30 @@ def main():
           f"{cli_run['eval_mota']:.4f}, offline iou arm over the frame "
           f"files {cli_run['offline_mota']:.4f}; offline tracks "
           f"{cli_run['tracks']}")
+    print(f"mesh (1, 1) over one NCCL rank: Trainer step ms (median of "
+          f"steps 2-{MESH_STEPS}, full width, B = 1) {mesh_a['step_ms']:.4f},"
+          f" meshless {mesh_a['meshless_step_ms']:.4f}; bit-equal "
+          f"{mesh_a['bit_equal']} (steps from one state: losses bit-equal, "
+          f"every leaf within close_states' bound, the largest share of "
+          f"it {mesh_a['bound_share']}"
+          f" ({mesh_a['bound_leaf']})); no collective runs at size 1; "
+          f"bytes "
+          f"all-reduced per step "
+          f"{mesh_a['reduced_bytes']} (one data rank; two would all-reduce "
+          f"{mesh_a['flat_bytes']}) on {card}")
+    for r, rank in enumerate(mesh_b["ranks"]):
+        dp, tp = rank["dp_step"], rank["tp_step"]
+        print(f"mesh rank {r} of 2 (gloo, one card): (2, 1) step ms "
+              f"{dp['ms'][0]:.4f} (one process at B = 2 "
+              f"{mesh_b['want']['dp_step']['ms'][0]:.4f}), bytes moved "
+              f"{dp['bytes_moved']:.0f}; (1, 2) TP step ms "
+              f"{tp['ms'][0]:.4f} (one process "
+              f"{mesh_b['want']['tp_step']['ms'][0]:.4f}), bytes moved "
+              f"{tp['bytes_moved']:.0f}; TP forward bytes moved "
+              f"{rank['tp_forward']['bytes_moved']:.0f}; evaluation s "
+              f"{rank['evaluate']['wall_s']:.4f} (one process "
+              f"{mesh_b['want']['evaluate']['wall_s']:.4f}); peak device "
+              f"memory {rank['peak_mib']:.0f} MiB on {card}")
     for line in kernel_lines(kern, card):
         print(line)
     # launches in each path's run, and per keyframe (pushes, the first of
@@ -2639,7 +3550,19 @@ def main():
         **{f"variant_forward_{name}": v["launches"][k.symbol]
            for name, v in variants.items()},
         "per_cli_couple": cli_run["launches"][k.symbol]
-        / cli_run["couples"]}
+        / cli_run["couples"],
+        "per_mesh_train_step_1x1": mesh_a["train_launches"][k.symbol]
+        / MESH_STEPS,
+        # 17(a)'s evaluation forwards one couple n + 1 times
+        "per_mesh_evaluated_couple_1x1": mesh_a["eval_launches"][k.symbol]
+        / (mesh_a["couples"] + 1),
+        **{f"mesh_{name}_per_rank": [r[name]["launches"][k.symbol]
+                                     for r in mesh_b["ranks"]]
+           for name in ("dp_step", "tp_step")},
+        # 17(b)'s ranks forward 2 + n couples between them
+        "per_mesh_evaluated_couple_2x1": sum(
+            r["evaluate"]["launches"][k.symbol] for r in mesh_b["ranks"])
+        / (mesh_b["couples"] + 2)}
         for k in counters}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
         "correlation_op": op_launches,

@@ -9,8 +9,19 @@ arguments):
 The config's ``model_name`` picks the dataset and the model family and
 its ``data_stride`` the stride evaluation, as in the JAX CLI. Every
 command runs on ``--device`` (``cuda`` unless asked for ``cpu``; the
-JAX CLI's ``--platform``); without a card the default raises. One card
-needs no mesh: ``train --num_model`` above 1 raises.
+JAX CLI's ``--platform``); without a card the default raises.
+
+``train`` over several ranks builds the ('data', 'model') mesh, as the
+JAX CLI does when it sees more than one device, with ``--num_model`` the
+tensor-parallel width of the FC trunks and the other ranks on 'data'
+(``--batch_size`` is the global batch):
+
+  torchrun --nproc_per_node N python -m dodt_tpu_torch.cli train \
+      --config cfg.json --ckpt_dir out/ckpt --num_model M --batch_size B
+
+torchrun's environment starts the process group (NCCL on ``cuda``, each
+rank on the card of its LOCAL_RANK; gloo on ``cpu``); a caller that has
+started one already (``parallel.launch.spawn``) keeps it.
 """
 from __future__ import annotations
 
@@ -54,22 +65,44 @@ def _build(cfg_path, split):
     return cfg, ds, model
 
 
+def _train_mesh(args):
+    """(mesh, device) for ``train``: the mesh over every rank when the
+    world holds more than one (torchrun's environment starts the group
+    unless the caller has), else none."""
+    import torch.distributed as dist
+    from dodt_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized() and world > 1:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        if args.num_model > 1:
+            raise ValueError(f"--num_model {args.num_model} needs a mesh "
+                             "of as many ranks at least (torchrun "
+                             "--nproc_per_node)")
+        return None, device
+    return make_mesh(num_model=args.num_model), device
+
+
 def cmd_train(args):
     from dodt_tpu_torch.models.dt_avod import init_params
     from dodt_tpu_torch.runtime.trainer import SEED, Trainer
 
-    if args.num_model > 1:
-        raise ValueError("--num_model > 1 needs the tensor-parallel mesh, "
-                         "which the port does not have yet")
     cfg, ds, model = _build(args.config, "train")
+    mesh, device = _train_mesh(args)
     # Flax's initialisers from a fixed seed; a checkpoint in ckpt_dir wins
     init_params(model, torch.Generator().manual_seed(SEED))
-    trainer = Trainer(cfg, model, ds, args.ckpt_dir,
-                      batch_size=args.batch_size, device=args.device)
+    trainer = Trainer(cfg, model, ds, args.ckpt_dir, mesh=mesh,
+                      batch_size=args.batch_size, device=device)
     _, history = trainer.train(max_steps=args.max_steps)
-    print(json.dumps(history[-5:], indent=2))
-    if trainer.metrics.path:
-        print(f"train metrics trail: {trainer.metrics.path}")
+    if trainer.writes:
+        print(json.dumps(history[-5:], indent=2))
+        if trainer.metrics.path:
+            print(f"train metrics trail: {trainer.metrics.path}")
 
 
 def cmd_evaluate(args):
@@ -197,8 +230,8 @@ def main(argv=None):
     t.add_argument("--batch_size", type=int, default=1)
     t.add_argument("--max_steps", type=int, default=None)
     t.add_argument("--num_model", type=int, default=1,
-                   help="tensor-parallel width for the FC trunks; only 1 "
-                        "until the port has its mesh")
+                   help="tensor-parallel width for the FC trunks over "
+                        "the ranks (torchrun); the rest form 'data'")
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate")

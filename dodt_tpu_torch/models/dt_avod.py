@@ -58,6 +58,7 @@ from dodt_tpu_torch.ops.iou import aligned_iou_matrix
 from dodt_tpu_torch.ops.roi_window import (crop_and_resize_window,
                                            window_applies)
 from dodt_tpu_torch.ops.voxel import bev_maps_from_points
+from dodt_tpu_torch.parallel.mesh import column_linear
 
 Rand = Callable[[str, Tuple[int, ...]], torch.Tensor]
 
@@ -79,6 +80,18 @@ def generator_draws(generator: torch.Generator) -> Rand:
     return rand
 
 
+def table_draws(table: Dict[str, np.ndarray], device="cpu") -> Rand:
+    """``rand`` returning draws made elsewhere (another framework, or
+    another process), one per name; a call for another shape raises."""
+    def rand(name: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        u = table[name]
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"draw {name}: table holds {u.shape}, the "
+                             f"model asks for {shape}")
+        return torch.as_tensor(u, device=device)
+    return rand
+
+
 def dropout(x: torch.Tensor, keep_prob: float, rand: Optional[Rand],
             name: str) -> torch.Tensor:
     """Flax ``nn.Dropout(1 - keep_prob)``: keep where the draw is below
@@ -95,7 +108,14 @@ def dropout(x: torch.Tensor, keep_prob: float, rand: Optional[Rand],
 
 
 class Dense(nn.Module):
-    """Linear layer computing in a given dtype; weight (out, in)."""
+    """Linear layer computing in a given dtype; weight (out, in).
+
+    Tensor-parallel on a mesh (parallel/mesh.py): a weight holding fewer
+    rows than the bias is this rank's block of output columns, computed
+    here and gathered over the mesh's model group (``tp``, set by
+    ``mesh.shard_module``)."""
+
+    tp = None
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
@@ -103,8 +123,13 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.linear(x.to(dtype), self.weight.to(dtype),
-                        self.bias.to(dtype))
+        x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
+        if w.shape[0] == b.shape[0]:
+            return F.linear(x, w, b)
+        if self.tp is None:
+            raise ValueError(f"a ({w.shape[0]}, {w.shape[1]}) block of a "
+                             f"{b.shape[0]}-column Dense without a mesh")
+        return column_linear(x, w, b, self.tp)
 
 
 class MlpHead(nn.Module):

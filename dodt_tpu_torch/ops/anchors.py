@@ -1,6 +1,6 @@
-"""Grid anchors, the occupancy integral image and the per-anchor
-empty-anchor filter (PyTorch port of dodt_tpu/ops/anchors.py, but for
-the 3D integral image, which no model path uses)."""
+"""Grid anchors, the occupancy integral images (2D, and 3D with its box
+query) and the per-anchor empty-anchor filter (PyTorch port of
+dodt_tpu/ops/anchors.py)."""
 from __future__ import annotations
 
 import numpy as np
@@ -85,3 +85,22 @@ def empty_anchor_mask(integral_2d: torch.Tensor, anchors: torch.Tensor,
     cells: a mask, not a gather."""
     return bev_occupancy_counts(integral_2d, anchors, bev_extents,
                                 voxel_size) >= density_threshold
+
+
+def integral_image_3d(grid: torch.Tensor) -> torch.Tensor:
+    """(X, Y, Z) -> (X+1, Y+1, Z+1) prefix sum with a zero face on each
+    axis (the reference's integral_images_3d.cpp:22-66)."""
+    c = torch.cumsum(torch.cumsum(torch.cumsum(grid, 0), 1), 2)
+    return torch.nn.functional.pad(c, (1, 0, 1, 0, 1, 0))
+
+
+def query_integral_3d(integral: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor) -> torch.Tensor:
+    """Box sums over [lo, hi) for N boxes; lo/hi (N, 3) integer indices
+    into ``integral_image_3d``'s output (8-corner inclusion-exclusion)."""
+    x1, y1, z1 = lo.long().unbind(-1)
+    x2, y2, z2 = hi.long().unbind(-1)
+    s = integral
+    return (s[x2, y2, z2] - s[x1, y2, z2] - s[x2, y1, z2] - s[x2, y2, z1]
+            + s[x1, y1, z2] + s[x1, y2, z1] + s[x2, y1, z1]
+            - s[x1, y1, z1])

@@ -1,5 +1,5 @@
-"""Projection of anchors into BEV and image space (PyTorch port of
-dodt_tpu/ops/projection.py)."""
+"""Projection of anchors into BEV and image space, and of points into
+the image (PyTorch port of dodt_tpu/ops/projection.py)."""
 from __future__ import annotations
 
 import numpy as np
@@ -61,3 +61,12 @@ def project_to_image_space(anchors: torch.Tensor, p2: torch.Tensor,
 def reorder_boxes_yx(boxes_xy: torch.Tensor) -> torch.Tensor:
     """[x1, y1, x2, y2] -> [y1, x1, y2, x2] (crop-and-resize order)."""
     return boxes_xy[..., [1, 0, 3, 2]]
+
+
+def project_points_to_image(points: torch.Tensor, p2) -> torch.Tensor:
+    """3D camera-frame points (..., 3) -> image pixels (..., 2) through
+    the (3, 4) camera matrix ``p2``."""
+    p2 = torch.as_tensor(p2, dtype=torch.float32, device=points.device)
+    pts_h = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    proj = torch.einsum("ij,...j->...i", p2, pts_h)
+    return proj[..., 0:2] / proj[..., 2:3]

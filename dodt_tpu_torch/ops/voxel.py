@@ -98,3 +98,20 @@ def bev_maps_from_points(points: torch.Tensor, valid: torch.Tensor,
     occ_idx = torch.where(in_band, xi * nz + zi, n_hw)
     occupancy = _scatter(n_hw, occ_idx, ones, "amax").reshape(nx, nz)
     return BevMaps(features=features, occupancy=occupancy)
+
+
+def points_in_area_mask(points: torch.Tensor, valid: torch.Tensor,
+                        ground_plane, area_extents,
+                        offset_dist: float = 2.0) -> torch.Tensor:
+    """The reference's get_point_filter: points (P, 3) strictly inside the
+    extents and below the ground plane shifted up by ``offset_dist``
+    (plane_dot < offset_dist), and ``valid``."""
+    ae = torch.as_tensor(np.asarray(area_extents, np.float32),
+                         device=points.device)
+    gp = torch.as_tensor(ground_plane, dtype=torch.float32,
+                         device=points.device)
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    in_area = ((x > ae[0, 0]) & (x < ae[0, 1]) & (y > ae[1, 0])
+               & (y < ae[1, 1]) & (z > ae[2, 0]) & (z < ae[2, 1]))
+    plane_dot = gp[0] * x + gp[1] * y + gp[2] * z + gp[3]
+    return in_area & (plane_dot < offset_dist) & valid.bool()

@@ -16,8 +16,13 @@ reference evaluator. A single-frame dataset (no couples) takes the
 detection-only evaluation: per-sample KITTI files and AP, no tracking.
 
 The evaluator runs on ``device`` (the card unless the caller asks for
-the CPU) and moves the model there. One card needs no mesh, so there is
-no ``mesh`` argument. ``stage_seconds`` sums the wall time of each
+the CPU) and moves the model there. With a ``mesh`` (parallel/mesh.py)
+it runs in every rank: the padded couple axis splits over the data
+ranks, each forwards its rows with the replicated parameters, the
+``final_*`` outputs (static shapes) are gathered over the data group and
+decoded on every rank, so every rank returns the same results; only
+global rank 0 writes files. ``val_health`` stays unsharded, as in JAX.
+``stage_seconds`` sums the wall time of each
 stage over the evaluator's runs: sample loading, the forward (ending in
 the copy of its outputs to the host), file writing with recovery and
 MoI, AP, tracking with MOT scoring, and ``val_health``; the
@@ -42,6 +47,7 @@ from dodt_tpu_torch.eval import kitti_ap, kitti_writer
 from dodt_tpu_torch.models.dt_avod import (FINAL_KEYS, Rand,
                                            generator_draws)
 from dodt_tpu_torch.ops import boxes as box_ops
+from dodt_tpu_torch.parallel import mesh as mesh_lib
 from dodt_tpu_torch.runtime.trainer import CheckpointIO, model_losses
 from dodt_tpu_torch.tracking import iou_tracker, moi, mot_eval
 from dodt_tpu_torch.utils.np_iou import rotated_iou_matrix
@@ -55,9 +61,12 @@ FETCH_KEYS = FINAL_KEYS + ("final_coexist",)
 
 class Evaluator:
     def __init__(self, cfg: PipelineConfig, model, dataset, ckpt_dir: str,
-                 output_dir: str, device="cuda"):
+                 output_dir: str, mesh: Optional[mesh_lib.Mesh] = None,
+                 device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.writes = mesh is None or torch.distributed.get_rank() == 0
         self.model = model.to(self.device)
         self.dataset = dataset
         self.ckpt = CheckpointIO(ckpt_dir)
@@ -87,12 +96,33 @@ class Evaluator:
 
     def _forward(self, samples) -> Dict[str, np.ndarray]:
         """The val-mode forward of ``samples`` padded to
-        ``cfg.eval.batch_size`` by repeating the last one; only
-        FETCH_KEYS come back to the host."""
+        ``cfg.eval.batch_size`` (on a mesh, then to a multiple of the data
+        ranks) by repeating the last one; only FETCH_KEYS come back to
+        the host."""
         target = max(self.cfg.eval.batch_size, 1, len(samples))
+        if self.mesh is not None:
+            target += (-target) % self.mesh.num_data
         padded = samples + [samples[-1]] * (target - len(samples))
+        if self.mesh is not None:
+            padded = padded[mesh_lib.batch_sharding(self.mesh, target)]
         out = self.model(self._device_batch(padded), mode="val")
-        return {k: out[k].cpu().numpy() for k in FETCH_KEYS if k in out}
+        out = {k: out[k] for k in FETCH_KEYS if k in out}
+        if self.mesh is not None:
+            out = {k: mesh_lib.all_gather_cat(v, self.mesh.data_group,
+                                              self.mesh)
+                   for k, v in out.items()}
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _write(self, path: str, lines):
+        """A KITTI file, written by the one writing rank."""
+        if self.writes:
+            kitti_writer.write_kitti_file(path, lines)
+
+    def _write_results(self, step, results: Dict):
+        if self.writes:
+            with open(os.path.join(self.output_dir,
+                                   f"results_{step}.json"), "w") as f:
+                json.dump(results, f, indent=2)
 
     @torch.no_grad()
     def predict_couples(self, idxs: List[int]) -> List[Dict]:
@@ -273,7 +303,7 @@ class Evaluator:
             det_frames.append(self._frame_det(dets0, calib, img_size))
 
             # ---- KITTI txt files
-            kitti_writer.write_kitti_file(
+            self._write(
                 os.path.join(pred_dir,
                              f"{cp.video_id:02d}{cp.frame_a:04d}.txt"),
                 self._kitti_lines(dets0, calib, img_size))
@@ -290,7 +320,7 @@ class Evaluator:
                 dets_b = self._recover_dets(
                     res["dets"][1], calib, cp.video_id, cp.frame_a,
                     cp.frame_b)
-                kitti_writer.write_kitti_file(
+                self._write(
                     os.path.join(pred_dir,
                                  f"{cp.video_id:02d}{cp.frame_b:04d}.txt"),
                     self._kitti_lines(dets_b, calib, img_size))
@@ -300,7 +330,7 @@ class Evaluator:
             by_frame = {cp.frame_a: dets0}
             if dets_b is not None:
                 by_frame[cp.frame_b] = dets_b
-            kitti_writer.write_kitti_file(
+            self._write(
                 os.path.join(couples_dir, f"{cp.name}.txt"),
                 kitti_writer.couple_detections_to_lines(
                     by_frame, classes=self.cfg.dataset.classes))
@@ -317,7 +347,7 @@ class Evaluator:
                     recovered = self._recover_dets(
                         frames[off], calib, cp.video_id, cp.frame_a,
                         frame_no)
-                    kitti_writer.write_kitti_file(
+                    self._write(
                         os.path.join(pred_dir,
                                      f"{cp.video_id:02d}{frame_no:04d}.txt"),
                         self._kitti_lines(recovered, calib, img_size))
@@ -345,9 +375,7 @@ class Evaluator:
             t0 = time.perf_counter()
             results["val_health"] = self.val_health()
             secs["val_health"] += time.perf_counter() - t0
-        with open(os.path.join(self.output_dir,
-                               f"results_{step}.json"), "w") as f:
-            json.dump(results, f, indent=2)
+        self._write_results(step, results)
         self._evaluated.add(int(step))
         return results
 
@@ -391,7 +419,7 @@ class Evaluator:
                 gts.append(kitti_ap.FrameGt.from_labels(
                     raw.select(~dc), dontcare=raw.bbox_2d[dc]))
                 det_frames.append(self._frame_det(dets, calib, img_size))
-                kitti_writer.write_kitti_file(
+                self._write(
                     os.path.join(pred_dir, f"{name}.txt"),
                     self._kitti_lines(dets, calib, img_size))
             secs["write"] += time.perf_counter() - t2
@@ -403,9 +431,7 @@ class Evaluator:
                    "ap": ap_per_class[self.cfg.dataset.classes[0]],
                    "ap_per_class": ap_per_class,
                    "ap_05_per_class": ap_05_per_class}
-        with open(os.path.join(self.output_dir,
-                               f"results_{step}.json"), "w") as f:
-            json.dump(results, f, indent=2)
+        self._write_results(step, results)
         self._evaluated.add(int(step))
         return results
 

@@ -16,7 +16,18 @@ rmsprop's decay is 0.9 with eps inside the square root, momentum is
 Randomness comes from explicit generators: step ``s`` draws from a
 generator seeded with (SEED, s), the analogue of the JAX step's
 ``fold_in(rng, step)``, so a resumed run repeats an uninterrupted one.
-One card needs no mesh; there is no ``mesh`` argument.
+
+With a ``mesh`` (parallel/mesh.py) the trainer runs in every rank of the
+process group, SPMD style, with JAX's global-batch semantics: each rank
+loads the same global batch from the same stream and keeps its rows,
+draws the global uniforms and keeps its rows, and the gradients and
+losses are averaged over the data ranks in one flat all-reduce; the FC
+trunks' weights, their moments and EMA are sharded over the model ranks
+(the replicated leaves' gradients averaged over them, so their copies
+stay identical), and the clip's global norm counts every sharded leaf
+once, in full.
+Global rank 0 writes the checkpoints, gathered to full tensors in the
+meshless format, while the others wait at a barrier.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import torch
 
 from dodt_tpu_torch.config import PipelineConfig
 from dodt_tpu_torch.models import dt_avod
+from dodt_tpu_torch.parallel import mesh as mesh_lib
 from dodt_tpu_torch.utils.metrics import MetricsLogger
 
 Params = Dict[str, torch.Tensor]
@@ -79,18 +91,24 @@ class Optimizer:
 
     ``opt_state``: {"schedule_count"} plus, per name, adam {"count",
     "mu", "nu"}, momentum {"trace"}, rmsprop {"nu"} (dicts of tensors
-    keyed like the params)."""
+    keyed like the params). On a mesh, ``sharded`` names the leaves that
+    hold one block of rows per model rank: the clip's norm sums their
+    squares over the model group."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adam defaults
     MOMENTUM = 0.9
     RMS_DECAY, RMS_EPS = 0.9, 1e-8          # optax.rmsprop defaults
 
     def __init__(self, cfg: PipelineConfig,
-                 frozen_mask: Optional[Dict[str, bool]] = None):
+                 frozen_mask: Optional[Dict[str, bool]] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 sharded: Optional[Dict[str, bool]] = None):
         self.cfg = cfg
         self.name = cfg.train.optimizer.name
         self.max_norm = cfg.train.optimizer.grad_clip_norm
         self.frozen = frozen_mask or {}
+        self.mesh = mesh
+        self.sharded = sharded or {}
         self.schedule = make_lr_schedule(cfg)
 
     def init(self, params: Params) -> Dict[str, Any]:
@@ -121,7 +139,10 @@ class Optimizer:
                 c[x] = _f32(x, like)
             return c[x]
 
-        norm = torch.sqrt(sum(torch.sum(t * t) for t in g.values()))
+        squares = mesh_lib.sum_over_shards(
+            [torch.sum(t * t) for t in g.values()],
+            [self.sharded.get(k, False) for k in g], self.mesh)
+        norm = torch.sqrt(sum(squares))
         keep = norm < self.max_norm
         g = {k: torch.where(keep, t, t / norm * f32(self.max_norm))
              for k, t in g.items()}
@@ -159,9 +180,10 @@ class Optimizer:
 
 
 def make_optimizer(cfg: PipelineConfig,
-                   frozen_mask: Optional[Dict[str, bool]] = None
-                   ) -> Optimizer:
-    return Optimizer(cfg, frozen_mask)
+                   frozen_mask: Optional[Dict[str, bool]] = None,
+                   mesh: Optional[mesh_lib.Mesh] = None,
+                   sharded: Optional[Dict[str, bool]] = None) -> Optimizer:
+    return Optimizer(cfg, frozen_mask, mesh, sharded)
 
 
 def top_level(name: str) -> str:
@@ -202,17 +224,30 @@ def model_losses(model: torch.nn.Module) -> Callable:
     return dt_avod.compute_losses
 
 
-def make_train_step(cfg: PipelineConfig, model: torch.nn.Module):
+def make_train_step(cfg: PipelineConfig, model: torch.nn.Module,
+                    mesh: Optional[mesh_lib.Mesh] = None):
     """(state, batch, rand) -> (new state, losses): one forward in train
     mode (dropout, path drop, sampling from ``rand``), the model's
     losses (``model_losses``), autograd gradients of every parameter, the
-    optimiser update and the EMA. Losses stay on the device."""
+    optimiser update and the EMA. Losses stay on the device.
+
+    With a ``mesh`` the state is ``mesh.shard_train_state``'s, the batch
+    this rank's rows (``mesh.shard_batch``) and ``rand`` the global draws,
+    as in the JAX step; the gradients and losses are averaged over the
+    data ranks and the replicated leaves' gradients over the model ranks,
+    and ``step_fn.reduced_bytes`` holds the bytes those all-reduces
+    carried in the last step."""
+    sharded = (mesh_lib.shard_module(model, mesh) if mesh is not None
+               else None)
     tx = make_optimizer(cfg, frozen_mask_from_subtrees(
-        dict(model.named_parameters()), cfg.train.frozen_subtrees or ()))
+        dict(model.named_parameters()), cfg.train.frozen_subtrees or ()),
+        mesh, sharded)
     loss_fn = model_losses(model)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 rand: dt_avod.Rand):
+        if mesh is not None:
+            rand = mesh_lib.shard_draws(rand, mesh)
         params = {k: v.detach().requires_grad_()
                   for k, v in state.params.items()}
         out = torch.func.functional_call(
@@ -223,6 +258,12 @@ def make_train_step(cfg: PipelineConfig, model: torch.nn.Module):
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if gr is None else gr
                  for (k, p), gr in zip(params.items(), grads)}
+        if mesh is not None:
+            grads, losses, over_data = mesh_lib.reduce_over_data(
+                grads, losses, mesh)
+            grads, over_model = mesh_lib.mean_over_model(grads, sharded,
+                                                         mesh)
+            step_fn.reduced_bytes = over_data + over_model
         updates, opt_state = tx.update(grads, state.opt_state)
         with torch.no_grad():
             new_params = {k: p.detach() + updates[k]
@@ -238,6 +279,8 @@ def make_train_step(cfg: PipelineConfig, model: torch.nn.Module):
         return TrainState(step=state.step + 1, params=new_params,
                           opt_state=opt_state, ema_params=ema), losses
 
+    step_fn.reduced_bytes = 0
+    step_fn.sharded = sharded
     return step_fn
 
 
@@ -375,21 +418,29 @@ class CheckpointIO:
 
 class Trainer:
     def __init__(self, cfg: PipelineConfig, model: torch.nn.Module,
-                 dataset, ckpt_dir: str, batch_size: int = 1,
+                 dataset, ckpt_dir: str,
+                 mesh: Optional[mesh_lib.Mesh] = None, batch_size: int = 1,
                  metrics_path: Optional[str] = "auto", device="cuda"):
         """Trains on ``device``, the card unless the caller asks for the
-        CPU, and moves the model there."""
+        CPU, and moves the model there. With a ``mesh``, every rank runs
+        this trainer; ``batch_size`` is the global batch, which must
+        split evenly over the data ranks."""
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.dataset = dataset
+        self.mesh = mesh
         self.batch_size = batch_size
+        if mesh is not None and batch_size % mesh.num_data:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{mesh.num_data} data ranks")
+        self.writes = mesh is None or torch.distributed.get_rank() == 0
         self.ckpt = CheckpointIO(ckpt_dir, cfg.train.max_checkpoints_to_keep)
         # window-averaged losses as JSONL next to the checkpoints
         if metrics_path == "auto":
             metrics_path = os.path.join(ckpt_dir, "train_metrics.jsonl")
-        self.metrics = MetricsLogger(metrics_path)
-        self.step_fn = make_train_step(cfg, self.model)
+        self.metrics = MetricsLogger(metrics_path if self.writes else None)
+        self.step_fn = make_train_step(cfg, self.model, mesh)
         self._spare_batches: list = []  # prefetched across train() calls
 
     def draws(self, step: int) -> dt_avod.Rand:
@@ -424,10 +475,25 @@ class Trainer:
                 ema = ({k: v.clone() for k, v in params.items()}
                        if state.ema_params is not None else None)
                 state = state._replace(params=params, ema_params=ema)
+        if self.mesh is not None:
+            state = mesh_lib.shard_train_state(state, self.mesh)
         return state
+
+    def save(self, step: int, state: TrainState):
+        """Checkpoint ``state``; on a mesh its shards are gathered first
+        and global rank 0 writes while the others wait."""
+        if self.mesh is None:
+            return self.ckpt.save(step, state)
+        full = mesh_lib.gather_train_state(state, self.mesh,
+                                           self.step_fn.sharded)
+        if self.writes:
+            self.ckpt.save(step, full)
+        torch.distributed.barrier()
 
     def _device_batch(self, augment=True) -> Dict[str, torch.Tensor]:
         batch = self.dataset.next_batch(self.batch_size, augment=augment)
+        if self.mesh is not None:
+            batch = mesh_lib.shard_batch(batch, self.mesh)
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items() if isinstance(v, np.ndarray)}
 
@@ -507,7 +573,7 @@ class Trainer:
                                                   if k != "step"})
                     if step % self.cfg.train.checkpoint_interval == 0 or \
                             step == max_steps:
-                        self.ckpt.save(step, state)
+                        self.save(step, state)
         finally:
             stop.set()
             if producer is not None:

@@ -1,15 +1,17 @@
-"""Metrics logging and latency statistics (the port's copy of the host
-half of dodt_tpu/utils/metrics.py: ``MetricsLogger`` and
-``latency_stats``; the JAX device-sync and profiler hooks are not
-copied)."""
+"""Metrics logging, latency statistics and profiling helpers (PyTorch
+port of dodt_tpu/utils/metrics.py): the JSONL metrics log, latency
+statistics, a device fence, a ``torch.profiler`` trace and a host/device
+step timer."""
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 class MetricsLogger:
@@ -33,6 +35,28 @@ class MetricsLogger:
         return rec
 
 
+def device_sync(tree) -> None:
+    """Wait until the work producing every CUDA tensor of ``tree`` (a
+    tensor, or a dict, list or tuple of them, nested) has finished: one
+    ``torch.cuda.synchronize`` per device they live on. CPU tensors are
+    ready when returned."""
+    devices = set()
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            if node.device.type == "cuda":
+                devices.add(node.device)
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+    walk(tree)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
 def latency_stats(times_s) -> Dict[str, float]:
     """Mean/median/min/max/std over per-sample latencies (reference
     print_inference_time_statistics semantics)."""
@@ -43,3 +67,53 @@ def latency_stats(times_s) -> Dict[str, float]:
         "std_s": float(t.std()), "fps": float(1.0 / t.mean()),
         "n": int(len(t)),
     }
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True):
+    """``torch.profiler`` over the block (CPU, and CUDA where a card is
+    present), its chrome trace written to ``log_dir/trace.json`` (open in
+    Perfetto or chrome://tracing)."""
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class StepTimer:
+    """Accumulates host/device split timings for the train loop; a device
+    interval ends once ``device_sync`` of its result returns."""
+
+    def __init__(self):
+        self.host_times: List[float] = []
+        self.device_times: List[float] = []
+        self._t0 = None
+
+    def host_start(self):
+        self._t0 = time.perf_counter()
+
+    def host_stop(self):
+        self.host_times.append(time.perf_counter() - self._t0)
+
+    def device_start(self):
+        self._t0 = time.perf_counter()
+
+    def device_stop(self, result=None):
+        if result is not None:
+            device_sync(result)
+        self.device_times.append(time.perf_counter() - self._t0)
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        out = {}
+        if self.host_times:
+            out["host"] = latency_stats(self.host_times)
+        if self.device_times:
+            out["device"] = latency_stats(self.device_times)
+        return out

@@ -174,8 +174,9 @@ def test_train_evaluate_infer(roots, tmp_path, capsys):
 
 
 def test_entry_points_need_a_card_or_cpu(roots, tmp_path):
-    """--device defaults to the card: without one, train raises; and the
-    mesh width is refused until the port has its mesh."""
+    """--device defaults to the card: without one, train raises; and a
+    mesh width above 1 without as many ranks is refused (nothing falls
+    back to one rank; tests/test_torch_mesh.py trains it under 2)."""
     t_root, _ = roots
     cfg_path = str(tmp_path / "cfg.json")
     _tiny(t_root, "dt_avod_model").save(cfg_path)

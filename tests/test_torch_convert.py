@@ -96,6 +96,9 @@ PORTED_HOST_MODULES = (
     "dodt_tpu_torch.tracking.mot_eval", "dodt_tpu_torch.utils.np_iou",
     # the entry points and their host copies
     "dodt_tpu_torch.cli", "dodt_tpu_torch.entry",
+    # the mesh and the last ported ops and helpers
+    "dodt_tpu_torch.parallel.mesh", "dodt_tpu_torch.parallel.launch",
+    "dodt_tpu_torch.ops.label_offset", "dodt_tpu_torch.utils.metrics",
     "dodt_tpu_torch.runtime.video", "dodt_tpu_torch.viz",
     "dodt_tpu_torch.eval.reporting", "dodt_tpu_torch.tracking.kalman",
     "dodt_tpu_torch.tracking.scenarios",
@@ -103,7 +106,7 @@ PORTED_HOST_MODULES = (
 
 
 @pytest.mark.parametrize("probe", ["jax", "flax", "orbax", "optax",
-                                   "dodt_tpu", "bench"])
+                                   "dodt_tpu", "bench", "__graft_entry__"])
 def test_port_imports_no_jax(probe):
     """Importing every dodt_tpu_torch module, chip_smoke.py and
     bench_torch.py leaves JAX, Flax, orbax and optax out of sys.modules,
@@ -158,3 +161,42 @@ def test_native_build_writes_nothing_beside_the_sources():
         path = native.library_path(name)
         assert path.parent == Path(REPO, "build", "native")
         assert path.is_file()
+
+
+@pytest.mark.parametrize("module", ["dodt_tpu_torch.parallel",
+                                    "dodt_tpu_torch.parallel.mesh",
+                                    "dodt_tpu_torch.parallel.launch",
+                                    "dodt_tpu_torch.entry"])
+def test_mesh_and_entry_reach_no_jax(module):
+    """The mesh, its rank launcher and the entry points (the twins of
+    __graft_entry__'s) import nothing of JAX, of the JAX package or of
+    __graft_entry__, and neither does a rank they spawn: a fresh
+    interpreter imports the module, builds a one-rank mesh over a gloo
+    group and reads sys.modules."""
+    code = (
+        "import importlib, os, sys, tempfile\n"
+        f"importlib.import_module({module!r})\n"
+        "import torch.distributed as dist\n"
+        "from dodt_tpu_torch.parallel import mesh\n"
+        "f = os.path.join(tempfile.mkdtemp(), 'rendezvous')\n"
+        "dist.init_process_group('gloo', init_method='file://' + f,\n"
+        "                        world_size=1, rank=0)\n"
+        "m = mesh.make_mesh(num_model=1)\n"
+        "assert m.shape == {'data': 1, 'model': 1}\n"
+        "dist.destroy_process_group()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dodt_tpu',\n"
+        "        '__graft_entry__', 'bench')]\n"
+        "print(bad, file=sys.stderr)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_make_mesh_without_a_process_group_raises():
+    """The mesh takes the caller's process group: none, no mesh (nothing
+    falls back to one rank)."""
+    from dodt_tpu_torch.parallel import mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_mesh()
