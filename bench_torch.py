@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Benchmark of the PyTorch port (dodt_tpu_torch) on one CUDA card: the
-counterpart of bench.py, printing ONE JSON line with bench.py's keys.
+counterpart of bench.py, printing ONE JSON line with bench.py's keys in
+bench.py's order, rounded as bench.py rounds them (``bench_line``).
 
     python3 bench_torch.py
 
@@ -60,14 +61,35 @@ def mean_seconds(fn):
     return (time.perf_counter() - t0) / N_ITERS
 
 
+def bench_line(pair_s, stream_s, stream_ego_s, flops, peak, device):
+    """bench.py's JSON line, its keys in its order, each number rounded as
+    bench.py rounds it: frames/s and ms to 2 places, vs_baseline to 3,
+    mfu to 4 (None without FLOPs or a peak), pair_gflops to 1 (None
+    without FLOPs)."""
+    from dodt_tpu_torch.data.synthetic_scan import BASELINE_FPS, TAU
+    fps = TAU / min(pair_s, stream_s)
+    mfu = flops / (pair_s * peak) if flops > 0 and peak else None
+    return {
+        "metric": "stream_fps_tau3",
+        "value": round(fps, 2),
+        "unit": "frames/s",
+        "vs_baseline": round(fps / BASELINE_FPS, 3),
+        "pair_latency_ms": round(pair_s * 1000, 2),
+        "stream_keyframe_ms": round(stream_s * 1000, 2),
+        "stream_keyframe_ms_ego": round(stream_ego_s * 1000, 2),
+        "mfu": round(mfu, 4) if mfu is not None else None,
+        "pair_gflops": round(flops / 1e9, 1) if flops else None,
+        "device": device,
+    }
+
+
 def main():
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from dodt_tpu_torch.config import cars_dt_tracking
     from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
-    from dodt_tpu_torch.data.synthetic_scan import (BASELINE_FPS, TAU,
-                                                    make_batch)
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
     from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
     from dodt_tpu_torch.runtime.predictor import StreamingPredictor
 
@@ -115,19 +137,8 @@ def main():
     name = torch.cuda.get_device_name(0)
     peak = peak_flops(name)
 
-    fps = TAU / min(pair_s, stream_s)
-    print(json.dumps({
-        "metric": "stream_fps_tau3",
-        "value": fps,
-        "unit": "frames/s",
-        "vs_baseline": fps / BASELINE_FPS,
-        "pair_latency_ms": pair_s * 1e3,
-        "stream_keyframe_ms": stream_s * 1e3,
-        "stream_keyframe_ms_ego": stream_ego_s * 1e3,
-        "mfu": flops / (pair_s * peak) if peak else None,
-        "pair_gflops": flops / 1e9,
-        "device": name,
-    }))
+    print(json.dumps(bench_line(pair_s, stream_s, stream_ego_s, flops, peak,
+                                name)))
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ and its reason on stdout and stderr, and prints no result:
   2. hold each kernel against its plain PyTorch twin on the card at the
      shapes the model paths give it (B1 at the keyframe's batch 1, the
      pair's 2 and the Stack's 4 frames; B2 on 2 and on the Stack's 4
-     maps, f32 and bf16; B4 at the public op's and at other D, strides,
-     channels, odd maps, N = 3 and bf16 inputs), and time both after warm-up (timed(): per-call time
+     maps, f32 and bf16; B3 and its blur form, corr_bottleneck_blur, at
+     the main path's and other D, strides, Cb and odd maps; B4 at the
+     public op's and at other D, strides, channels, odd maps, N = 3 and
+     bf16 inputs), and time both after warm-up (timed(): per-call time
      through the wrapper, device time with the host out of the way, host
      time per enqueue); B4's gradient route against the twin's autograd;
   3. run the full-width cars_dt_tracking slice (seeded random weights,
@@ -36,8 +38,9 @@ and its reason on stdout and stderr, and prints no result:
      one step's gradients must be finite for every parameter and non-zero
      for B3's weights, every loss term finite and non-zero, B3's counter
      must grow and B1's and B2's (eval-only) stay 0; prints the median
-     step time, B3's backward time against its forward and the peak
-     memory;
+     step time and the peak memory (of the route the step takes, B3's
+     backward through the blur VJP), and phase 2's B3 backward times on
+     both routes against its forward;
   8. one train step of the small config on the card and on the CPU with
      the same weights and draws (dropout off): losses and every gradient
      compared;
@@ -112,21 +115,29 @@ and its reason on stdout and stderr, and prints no result:
      rank's step ms, bytes moved and peak memory;
  18. the last ported ops on the card against the CPU (rotated and 3D IoU,
      the 3D integral image and its query, point projection, the area
-     mask) and the metrics helpers (device_sync, StepTimer,
-     profile_trace) on the card.
+     mask, bev_pixel_from_xz) and the metrics helpers (device_sync,
+     StepTimer, profile_trace) on the card.
 
-Phase 2 also holds B3's and B1's autograd routes (kernel forward, the
-twin's autograd backward) against the twins' autograd, and times B3's
-backward. For each kernel it prints its time through the wrapper
-(``ms``), its device time (``device_ms``) and host time per call
-(``host_us``), the least time the card could take for the same work
-(bytes over HBM's rate or operations over the peak rate of their type,
-whichever is larger) and that bound's share of ``device_ms``, the same
-three times of the one PyTorch call that computes the same function
-(B1: cuDNN bf16 convs; B2: F.grid_sample; B3, B4: none) and the twin's
-time. ``ms`` is what a host-bound caller pays; ``device_ms`` is the
-kernel's own work, so a kernel is compared with its library call by
-``device_ms``.
+Phase 2 also holds B3's and B1's autograd routes against the twins'
+autograd: B3's kernel forward with its backward through the blur form
+(corr_bottleneck_vjp), B1's kernel forward with the twin's autograd
+backward; it times B3's backward on both routes, the blur VJP (the
+route taken, ``bwd_ms``) and the twin's autograd (``bwd_ms_twin``),
+and holds the route's gradients to the twin's a second time with
+cudnn.allow_tf32 at PyTorch's default, True, which the port's entry
+points run under (``bwd_rel_err_tf32``, the largest error over max
+|ref|); the JSON ``kernels`` line carries these. For each kernel it
+prints its time through the wrapper (``ms``), its device time
+(``device_ms``) and host time per call (``host_us``), the least time
+the card could take for the same work (bytes over HBM's rate or
+operations over the peak rate of their type, whichever is larger) and
+that bound's share of ``device_ms``, the same three times of the one
+PyTorch call that computes the same function (B1: cuDNN bf16 convs;
+B2: F.grid_sample; B3: the blur form, a cuDNN depthwise conv and a
+reduce, as JAX's XLA path computes it; B4: none, no PyTorch call
+computes the raw volume) and the twin's time. ``ms`` is
+what a host-bound caller pays; ``device_ms`` is the kernel's own work,
+so a kernel is compared with its library call by ``device_ms``.
 
     python3 chip_smoke.py --mesh-cards
 
@@ -332,8 +343,11 @@ def library_calls(inp):
     is one: B1's chain as cuDNN bf16 convs (a function of the map), B2
     F.grid_sample on the crops' sample lattice (the gather crop's,
     align_corners: pixel centres at -1 .. 1; it reads the f32 map and
-    agrees with B2 on the ROIs that fit their window). B3 and B4 have
-    none. The port calls neither."""
+    agrees with B2 on the ROIs that fit their window). B3's is the blur
+    form (kernel_times: the port's corr_bottleneck_blur, a cuDNN
+    depthwise conv and a reduce; the form JAX's XLA path computes, and
+    the port's B3 backward); B4 has none: no PyTorch call computes the
+    raw volume. The port calls neither of these two."""
     import torch
     import torch.nn.functional as F
     from dodt_tpu_torch.ops import roi
@@ -367,7 +381,8 @@ def kernel_times(dev, inp=None):
     main-path shapes, and of its library call: {name: {"ms", "device_ms",
     "host_us", "library_ms", "library_device_ms", "library_host_us"}}.
     It calls only what every tree of the port has, with the signatures
-    they all keep, so that --compare-kernels times another tree's kernels
+    they all keep (B3's library route, corr_bottleneck_blur, where the
+    tree has it), so that --compare-kernels times another tree's kernels
     with this tree's code."""
     from dodt_tpu_torch.ops import conv_chain as cc
     from dodt_tpu_torch.ops import correlation as corr
@@ -383,8 +398,10 @@ def kernel_times(dev, inp=None):
         "roi_window": (
             timed(lambda: roi_window.crop_and_resize_window(maps, boxes, 7)),
             timed(grid_sample)),
-        "corr_bottleneck": (timed(lambda: corr.corr_bottleneck(a, b, w, 5)),
-                            None),
+        "corr_bottleneck": (
+            timed(lambda: corr.corr_bottleneck(a, b, w, 5)),
+            timed(lambda: corr.corr_bottleneck_blur(a, b, w, 5))
+            if hasattr(corr, "corr_bottleneck_blur") else None),
         "correlation_cf": (timed(lambda: corr.correlation_cf(a, b, 5)),
                            None)}
     return {name: {**k, **{"library_" + key: (lib or {}).get(key)
@@ -547,12 +564,19 @@ def kernel_checks(dev):
                   ((1, 33, 47, 24), 5, 1, 11, 3)))):
         got = corr.corr_bottleneck(aa, bb, ww, md, s2)
         want = corr.corr_bottleneck_plain(aa, bb, ww, md, s2)
-        check(got.shape == want.shape, f"corr_bottleneck shape {got.shape}")
+        blur = corr.corr_bottleneck_blur(aa, bb, ww, md, s2)
+        check(got.shape == want.shape == blur.shape,
+              f"corr_bottleneck shape {got.shape}, blur {blur.shape}")
         e, scale = rel_err(got, want)
-        # f32 sums of D^2 x C products in another order: 1e-4 of the range
+        e_b = rel_err(blur, want)[0]
+        # f32 sums of D^2 x C products in another order: 1e-4 of the
+        # range, for the kernel and for the blur form (its library route
+        # and backward)
         log(f"B3 corr_bottleneck {tuple(aa.shape)} d {md} stride_2 {s2} "
-            f"Cb {ww.shape[1]}: max_abs_err {e:.4g} (max |ref| {scale:.4g})")
+            f"Cb {ww.shape[1]}: max_abs_err {e:.4g}, blur form {e_b:.4g} "
+            f"(max |ref| {scale:.4g})")
         check(e <= 1e-4 * scale, f"corr_bottleneck disagrees: {e}")
+        check(e_b <= 1e-4 * scale, f"corr_bottleneck_blur disagrees: {e_b}")
         if aa is a:
             err = e
     px = 350 * 400
@@ -630,11 +654,27 @@ def kernel_lines(res, card):
     return lines
 
 
+def twin_vjp(a, b, weights, grad, max_displacement, stride_2=1):
+    """B3's other backward route: the twin's autograd recomputed from the
+    inputs (the port's B3 backward before corr_bottleneck_vjp)."""
+    import torch
+    from dodt_tpu_torch.ops import correlation as corr
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (a, b, weights)]
+        out = corr.corr_bottleneck_plain(*leaves, max_displacement, stride_2)
+        return torch.autograd.grad(out, leaves, grad)
+
+
 def autograd_checks(dev, res, a, b, w, ws, bs, xs):
-    """B3's and B1's autograd routes (the kernel forward, the twin's
-    autograd backward) against the twins' autograd at the main-path
-    shapes, to the forward tolerances; B3's backward timed against its
-    forward (CUDA events)."""
+    """B3's and B1's autograd routes against the twins' autograd at the
+    main-path shapes, to the forward tolerances: B3's kernel forward with
+    its backward through the blur form (corr_bottleneck_vjp), B1's kernel
+    forward with the twin's autograd backward. B3's route again with
+    cudnn.allow_tf32 True (PyTorch's default; the script runs with it
+    False), to the same bound. B3's two backward routes
+    timed alike (CUDA events): the blur VJP, which the route takes
+    (``bwd_ms``), and the twin's autograd (``bwd_ms_twin``); and the
+    route's forward + backward less its forward."""
     import torch
     from dodt_tpu_torch.ops import conv_chain as cc
     from dodt_tpu_torch.ops import correlation as corr
@@ -648,9 +688,28 @@ def autograd_checks(dev, res, a, b, w, ws, bs, xs):
     (corr.corr_bottleneck_plain(*twin, 5) * cot).sum().backward()
     for name, k, p in zip(("a", "b", "weights"), kern, twin):
         e, scale = rel_err(k.grad, p.grad)
-        log(f"B3 gradient w.r.t. {name} vs the twin's: max_abs_err {e:.4g} "
-            f"(max |ref| {scale:.4g})")
+        log(f"B3 gradient w.r.t. {name} (blur VJP) vs the twin's autograd: "
+            f"max_abs_err {e:.4g} (max |ref| {scale:.4g})")
         check(e <= 1e-4 * scale, f"corr_bottleneck grad {name}: {e}")
+    # again at PyTorch's default cudnn.allow_tf32 (True), which the
+    # port's entry points (Trainer, cli train) run under: the blur VJP's
+    # convs are cuDNN's, so their precision is cuDNN's choice there
+    tf32 = [t.detach().clone().requires_grad_() for t in (a, b, w)]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        (corr.corr_bottleneck(*tf32, 5) * cot).sum().backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    errs = []
+    for name, k, p in zip(("a", "b", "weights"), tf32, twin):
+        e, scale = rel_err(k.grad, p.grad)
+        errs.append(e / scale)
+        log(f"B3 gradient w.r.t. {name} (blur VJP, cudnn.allow_tf32 True) "
+            f"vs the twin's autograd: max_abs_err {e:.4g} (max |ref| "
+            f"{scale:.4g})")
+        check(e <= 1e-4 * scale,
+              f"corr_bottleneck grad {name} with TF32 allowed: {e}")
+    res["corr_bottleneck"]["bwd_rel_err_tf32"] = max(errs)
 
     def fwd():
         return corr.corr_bottleneck(*kern, 5)
@@ -659,9 +718,15 @@ def autograd_checks(dev, res, a, b, w, ws, bs, xs):
         torch.autograd.grad(corr.corr_bottleneck(*kern, 5), kern, cot)
     f_ms = cuda_time_ms(fwd, n_timed=5)
     fb_ms = cuda_time_ms(fwd_bwd, n_timed=5)
-    res["corr_bottleneck"]["bwd_ms"] = fb_ms - f_ms
-    log(f"B3 at (1, 350, 400, 32): forward {f_ms:.4f} ms, backward (the "
-        f"twin's autograd) {fb_ms - f_ms:.4f} ms")
+    bwd = {route: cuda_time_ms(lambda fn=fn: fn(a, b, w, cot, 5), n_timed=5)
+           for route, fn in (("blur", corr.corr_bottleneck_vjp),
+                             ("twin", twin_vjp))}
+    res["corr_bottleneck"]["bwd_ms"] = bwd["blur"]
+    res["corr_bottleneck"]["bwd_ms_twin"] = bwd["twin"]
+    log(f"B3 at (1, 350, 400, 32): forward {f_ms:.4f} ms; backward "
+        f"through the blur VJP (the route) {bwd['blur']:.4f} ms, through "
+        f"the twin's autograd {bwd['twin']:.4f} ms; the route's forward + "
+        f"backward less its forward {fb_ms - f_ms:.4f} ms")
 
     # B1: the conv4 chain's gradients w.r.t. the input and every weight
     x = xs[0].detach().clone().requires_grad_()
@@ -2979,13 +3044,14 @@ def rest_ops_cuda_vs_cpu(dev):
     """The last ported ops on the card against the CPU at the JAX tests'
     shapes: rotated and 3D IoU matrices (12 x 9 seeded boxes and the
     45-degree square pair), the 3D integral image (10 x 8 x 12) and its
-    box query, point projection, the area mask; and the metrics
-    helpers on the card: device_sync waits for queued work, profile_trace
-    records device kernels, StepTimer's device interval ends after the
-    work. (The BEV-border offsets are host numpy code, no device op.)"""
+    box query, point projection, the area mask, the metric-to-BEV-pixel
+    map; and the metrics helpers on the card: device_sync waits for
+    queued work, profile_trace records device kernels, StepTimer's device
+    interval ends after the work. (The BEV-border offsets are host numpy
+    code, no device op.)"""
     import tempfile
     import torch
-    from dodt_tpu_torch.ops import anchors, iou, projection, voxel
+    from dodt_tpu_torch.ops import anchors, iou, projection, voxel, warp
     from dodt_tpu_torch.utils import metrics
 
     rng = np.random.RandomState(3)
@@ -3041,6 +3107,17 @@ def rest_ops_cuda_vs_cpu(dev):
     check(torch.equal(m.cpu(), voxel.points_in_area_mask(
         torch.as_tensor(pts) / 5, torch.as_tensor(valid), gp, ae)),
         "points_in_area_mask card vs CPU")
+    # the full-width BEV map's extents, points on and off the map
+    bev_ae = np.float32([[-40.0, 40.0], [0.0, 70.0]])
+    xz = [torch.as_tensor(rng.uniform(lo - 5, hi + 5, 500).astype(
+        np.float32)) for lo, hi in bev_ae]
+    got = warp.bev_pixel_from_xz(xz[0].to(dev), xz[1].to(dev), bev_ae, 350,
+                                 400)
+    want = warp.bev_pixel_from_xz(xz[0], xz[1], bev_ae, 350, 400)
+    e = max(float((g.cpu() - c).abs().max()) for g, c in zip(got, want))
+    worst["bev_pixel_from_xz"] = e
+    # a few f32 ulps of a 400-pixel coordinate
+    check(e <= 1e-6 * 400, f"bev_pixel_from_xz card vs CPU {e}")
 
     # metrics: a queued 100 ms sleep is over when device_sync returns
     x = torch.ones(1, device=dev)
@@ -3330,7 +3407,7 @@ def compare_kernels(other):
     for name in runs[0]:
         for key in ("ms", "device_ms", "host_us", "library_ms",
                     "library_device_ms", "library_host_us"):
-            if runs[0][name][key] is not None:
+            if all(r[name][key] is not None for r in runs):
                 print(f"{name} {key} (other, this, this, other): "
                       + ", ".join(f"{r[name][key]:.4f}" for r in runs)
                       + f" on {card}")
@@ -3439,8 +3516,12 @@ def main():
     print(f"pair_latency_ms: {pair_ms:.4f} on {card}")
     print(f"train_step_ms (median, full width, B = 1): {step_ms:.4f}, peak "
           f"device memory {peak_mib:.0f} MiB on {card}")
-    print(f"B3 backward ms: {kern['corr_bottleneck']['bwd_ms']:.4f}, forward "
-          f"{kern['corr_bottleneck']['ms']:.4f} on {card}")
+    b3 = kern["corr_bottleneck"]
+    print(f"B3 backward ms through the blur VJP (the route the train step "
+          f"takes): {b3['bwd_ms']:.4f}; through the twin's autograd "
+          f"{b3['bwd_ms_twin']:.4f}; forward {b3['ms']:.4f}; its gradients' "
+          f"largest error with cudnn.allow_tf32 True, relative to max |ref| "
+          f"{b3['bwd_rel_err_tf32']:.4g} on {card}")
     st = ev["stages"]
     print(f"eval couples/s (full width, {ev['couples']} couples, "
           f"run_checkpoint_once with val_health): "
@@ -3575,7 +3656,8 @@ def main():
          **{key: kern[name][key] for key in (
              "max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "library_device_ms",
-             "library_host_us")}}
+             "library_host_us", "bwd_ms", "bwd_ms_twin", "bwd_rel_err_tf32")
+            if key in kern[name]}}
         for name, (src, rep, k) in sources.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,13 +11,14 @@ with its 1x1 bottleneck (kernel B3).
 Counterpart of dodt_tpu/ops/correlation.py. ``correlation_cf`` /
 ``correlation`` replace the ``correlation_pallas_cf`` route of the
 public ops (CUDA kernel ``csrc/correlation_cf.cu``; no model calls
-them). ``corr_bottleneck`` replaces ``corr_bottleneck_pallas`` (the JAX
-model computes the same function through the XLA ``corr_bottleneck_blur``
-form); its CUDA kernel (``csrc/correlation.cu``) contracts the
-correlation with the weights on chip, so the D^2-channel volume never
-reaches device memory. Each kernel has a PyTorch twin (``*_plain``).
-CPU tensors take the twin, CUDA tensors the kernel, anything else
-raises.
+them). ``corr_bottleneck`` replaces ``corr_bottleneck_pallas``; its CUDA
+kernel (``csrc/correlation.cu``) contracts the correlation with the
+weights on chip, so the D^2-channel volume never reaches device memory.
+``corr_bottleneck_blur`` is the form the JAX model computes (a
+depthwise D x D conv of B and a multiply-reduce with A); on the card
+it is B3's backward (``corr_bottleneck_vjp``). Each kernel has a
+PyTorch twin (``*_plain``). CPU tensors take the twin, CUDA tensors the
+kernel, anything else raises.
 """
 from __future__ import annotations
 
@@ -136,11 +137,62 @@ def corr_bottleneck_cuda(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def corr_bottleneck_blur(a: torch.Tensor, b: torch.Tensor,
+                         weights: torch.Tensor, max_displacement: int,
+                         stride_2: int = 1) -> torch.Tensor:
+    """The correlation + bottleneck as a blur (dodt_tpu/ops/correlation.py
+    ``corr_bottleneck_blur``): out[k] = (1 / C) sum_c A_c * (B_c blurred
+    with the D x D kernel w[:, k]), so the D^2-channel volume never
+    exists. a, b (B, H, W, C) or (H, W, C); weights (D^2, Cb) ->
+    (B, Cb, H, W) or (Cb, H, W); plain PyTorch on any device.
+
+    The blur is one depthwise conv (groups = C, dilation stride_2) of a
+    contiguous NCHW copy of B (cuDNN's depthwise conv on the permuted
+    channels-last map took 4-5 times as long on an H100:
+    probes/b3_blur_forms.py), whose output channel c * Cb + k is
+    channel c of B under column k of the weights (JAX's tiled kernel
+    order), in B's dtype; the reduce promotes A and the blur as JAX's
+    einsum does. B is padded by r * stride_2 on each side, the
+    displacement grid of the twin and the kernels. (JAX's blur pads
+    max_displacement before and (D - 1) * stride_2 - max_displacement
+    after, which is the same wherever max_displacement % stride_2 == 0,
+    and moves the grid by max_displacement - r * stride_2 pixels
+    otherwise: ROADMAP C20.)"""
+    if a.dim() == 3:
+        return corr_bottleneck_blur(a[None], b[None], weights,
+                                    max_displacement, stride_2)[0]
+    nb, h, w, c = a.shape
+    radius, d = disp_grid(max_displacement, stride_2)
+    cb = weights.shape[1]
+    span = radius * stride_2
+    kern = weights.to(b.dtype).t().reshape(cb, 1, d, d).repeat(c, 1, 1, 1)
+    b_pad = F.pad(b.permute(0, 3, 1, 2).contiguous(),
+                  (span, span, span, span))
+    bw = F.conv2d(b_pad, kern, dilation=stride_2, groups=c)
+    bw = bw.reshape(nb, c, cb, h, w)
+    dt = torch.promote_types(a.dtype, bw.dtype)
+    return torch.einsum("nchw,nckhw->nkhw", a.permute(0, 3, 1, 2).to(dt),
+                        bw.to(dt)) / c
+
+
+def corr_bottleneck_vjp(a: torch.Tensor, b: torch.Tensor,
+                        weights: torch.Tensor, grad: torch.Tensor,
+                        max_displacement: int, stride_2: int = 1):
+    """B3's backward: the gradients (a, b, weights) of
+    ``corr_bottleneck_blur`` recomputed from the saved inputs under the
+    output gradient ``grad`` (the JAX custom_vjp's backward through an
+    XLA form, dodt_tpu/ops/correlation.py:282-287). It holds B's NCHW
+    copy and the blur (B, C x Cb, H, W) as its extra maps."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (a, b, weights)]
+        out = corr_bottleneck_blur(*leaves, max_displacement, stride_2)
+        return torch.autograd.grad(out, leaves, grad)
+
+
 class _CorrBottleneck(torch.autograd.Function):
-    """The kernel forward; the backward is the twin's autograd,
-    recomputed from the saved a, b and weights (the JAX custom_vjp's
-    backward through ``corr_bottleneck_xla``, correlation.py:282-287;
-    there is no backward kernel)."""
+    """The kernel forward; the backward is ``corr_bottleneck_vjp``,
+    recomputed from the saved a, b and weights (there is no backward
+    kernel)."""
 
     @staticmethod
     def forward(ctx, a, b, weights, max_displacement, stride_2):
@@ -151,11 +203,8 @@ class _CorrBottleneck(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with torch.enable_grad():
-            a, b, w = (t.detach().requires_grad_()
-                       for t in ctx.saved_tensors)
-            out = corr_bottleneck_plain(a, b, w, *ctx.args)
-            ga, gb, gw = torch.autograd.grad(out, (a, b, w), grad)
+        ga, gb, gw = corr_bottleneck_vjp(*ctx.saved_tensors, grad,
+                                         *ctx.args)
         return ga, gb, gw, None, None
 
 

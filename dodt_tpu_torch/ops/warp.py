@@ -11,6 +11,17 @@ import numpy as np
 import torch
 
 
+def bev_pixel_from_xz(x, z, bev_extents, h: int, w: int):
+    """Metric (x, z) -> (row, col) BEV pixel coordinates, tensors or
+    floats: half-pixel convention, z flipped (as the projection to the
+    BEV and the ROI sampling)."""
+    x0, x1 = bev_extents[0][0], bev_extents[0][1]
+    z0, z1 = bev_extents[1][0], bev_extents[1][1]
+    col = (x - x0) / (x1 - x0) * w - 0.5
+    row = (z1 - z) / (z1 - z0) * h - 0.5
+    return row, col
+
+
 def _src_grid(h: int, w: int, a2: torch.Tensor, b2: torch.Tensor, ae):
     """Source-frame (row, col) sample coordinates of every destination
     pixel under the affine metric map, plus the in-range mask."""
@@ -24,9 +35,7 @@ def _src_grid(h: int, w: int, a2: torch.Tensor, b2: torch.Tensor, ae):
     zg, xg = torch.meshgrid(z_dst, x_dst, indexing="ij")     # (H, W)
     x_src = a2[0, 0] * xg + a2[0, 1] * zg + b2[0]
     z_src = a2[1, 0] * xg + a2[1, 1] * zg + b2[1]
-    # metric -> pixel: half-pixel convention, z flipped
-    c_src = (x_src - float(x0)) / float(x1 - x0) * w - 0.5
-    r_src = (float(z1) - z_src) / float(z1 - z0) * h - 0.5
+    r_src, c_src = bev_pixel_from_xz(x_src, z_src, ae, h, w)
     inside = ((r_src >= 0) & (r_src <= h - 1) &
               (c_src >= 0) & (c_src <= w - 1))
     return r_src, c_src, inside

@@ -195,7 +195,8 @@ def test_correlation_kernel_matches_twin(dev, shape, md, s2):
 @pytest.mark.cuda
 def test_corr_bottleneck_gradients_are_the_twins(dev):
     """B3 on the card carries a grad_fn; its gradients w.r.t. a, b and
-    the weights are the twin's autograd (1e-5)."""
+    the weights (the blur form's VJP, corr_bottleneck_vjp) are the
+    twin's autograd (1e-5)."""
     g = torch.Generator().manual_seed(4)
     a, b = (torch.randn(1, 30, 41, 16, generator=g).to(dev)
             for _ in range(2))
@@ -322,8 +323,9 @@ def test_corr_bottleneck_kernel_matches_twin_at_every_cb(dev, md, s2, cb):
 @pytest.mark.parametrize("md,s2,cb", [(2, 1, 1), (5, 2, 3)])
 def test_corr_bottleneck_gradients_are_the_twins_at_other_shapes(dev, md,
                                                                  s2, cb):
-    """The redesigned forward keeps the twin's autograd as its backward:
-    gradients w.r.t. a, b and the weights equal the twin's (1e-5)."""
+    """The kernel forward with the blur form's VJP as its backward:
+    gradients w.r.t. a, b and the weights equal the twin's autograd
+    (1e-5), off the model's grid too (stride_2 = 2, Cb = 3)."""
     g = torch.Generator().manual_seed(13)
     _, d = tcorr.disp_grid(md, s2)
     a, b = (torch.randn(2, 21, 34, 8, generator=g).to(dev) for _ in range(2))
@@ -336,3 +338,22 @@ def test_corr_bottleneck_gradients_are_the_twins_at_other_shapes(dev, md,
     for got, want in zip(kern, twins):
         torch.testing.assert_close(got.grad, want.grad, rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md,s2,cb", [(5, 1, 1), (5, 2, 3)])
+def test_corr_bottleneck_blur_matches_twin(dev, md, s2, cb):
+    """The blur form (a cuDNN depthwise conv and a reduce) on the card:
+    within 1e-4 of the twin's range (f32 sums in another order), and it
+    launches no B3 kernel."""
+    g = torch.Generator().manual_seed(14)
+    _, d = tcorr.disp_grid(md, s2)
+    a, b = (torch.randn(2, 37, 45, 16, generator=g).to(dev)
+            for _ in range(2))
+    w = (torch.randn(d * d, cb, generator=g) / d).to(dev)
+    before = tcorr._KERNEL.launches
+    got = tcorr.corr_bottleneck_blur(a, b, w, md, s2)
+    assert tcorr._KERNEL.launches == before
+    want = tcorr.corr_bottleneck_plain(a, b, w, md, s2)
+    assert got.shape == want.shape == (2, cb, 37, 45)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -309,33 +309,58 @@ def _kernel_standin(plain):
     return call
 
 
-@pytest.mark.parametrize("md,s2,cb", [(5, 1, 1), (4, 2, 2)])
+@pytest.mark.parametrize("md,s2,cb", [(5, 1, 1), (4, 2, 2), (5, 2, 3),
+                                      (2, 1, 1)])
 def test_corr_bottleneck_autograd_route_matches_twin(monkeypatch, md, s2,
                                                      cb):
     """B3's CUDA route (``_CorrBottleneck``) with the kernel call replaced
-    by a graph-less stand-in: the output carries a grad_fn, and the
-    gradients w.r.t. a, b and the weights are the twin's autograd (the
-    JAX custom_vjp's backward), equal to f32 rounding (1e-6). Without
-    the Function the kernel's output has no graph, so the weights would
-    get no gradient on the card."""
+    by a graph-less stand-in: the output carries a grad_fn, its backward
+    goes through ``corr_bottleneck_vjp`` once (a spy), and the gradients
+    w.r.t. a, b and the weights are the twin's autograd to 1e-6, in f64:
+    the twin's loop and the blur's conv sum in other orders, which in
+    f32 alone parts them by a few 1e-6. From the same inputs in f32 they
+    are also jax.vjp's of ``corr_bottleneck_xla`` (the JAX custom_vjp's
+    backward) within 1e-4 of the largest gradient. Without the Function
+    the kernel's output has no graph, so the weights would get no
+    gradient on the card."""
     monkeypatch.setattr(tcorr, "corr_bottleneck_cuda",
                         _kernel_standin(tcorr.corr_bottleneck_plain))
-    g = torch.Generator().manual_seed(6)
+    calls, vjp = [], tcorr.corr_bottleneck_vjp
+
+    def spy(*args):
+        calls.append(args[-2:])
+        return vjp(*args)
+    monkeypatch.setattr(tcorr, "corr_bottleneck_vjp", spy)
+    rng = np.random.RandomState(6)
     _, d = tcorr.disp_grid(md, s2)
-    a, b = (torch.randn(2, 10, 12, 8, generator=g) for _ in range(2))
-    w = torch.randn(d * d, cb, generator=g)
-    cot = torch.randn(2, cb, 10, 12, generator=g)
-    assert tcorr.corr_bottleneck_cuda(a, b, w, md, s2).grad_fn is None
-    leaves = [t.clone().requires_grad_() for t in (a, b, w)]
+    a, b = (rng.randn(2, 10, 12, 8).astype(np.float32) for _ in range(2))
+    w = (rng.randn(d * d, cb) / d).astype(np.float32)
+    cot = rng.randn(2, cb, 10, 12).astype(np.float32)
+    assert tcorr.corr_bottleneck_cuda(
+        *(torch.from_numpy(t) for t in (a, b, w)), md, s2).grad_fn is None
+    leaves = [torch.from_numpy(t).double().requires_grad_()
+              for t in (a, b, w)]
     out = tcorr._CorrBottleneck.apply(*leaves, md, s2)
     assert out.grad_fn is not None
-    (out * cot).sum().backward()
-    twins = [t.clone().requires_grad_() for t in (a, b, w)]
-    (tcorr.corr_bottleneck_plain(*twins, md, s2) * cot).sum().backward()
+    (out * torch.from_numpy(cot).double()).sum().backward()
+    assert calls == [(md, s2)]
+    twins = [torch.from_numpy(t).double().requires_grad_()
+             for t in (a, b, w)]
+    (tcorr.corr_bottleneck_plain(*twins, md, s2)
+     * torch.from_numpy(cot).double()).sum().backward()
     for got, want in zip(leaves, twins):
         torch.testing.assert_close(got.grad, want.grad, rtol=1e-6,
                                    atol=1e-6)
     assert float(leaves[2].grad.abs().max()) > 0
+
+    def xla(a, b, w):
+        return jcorr.corr_bottleneck_xla(a, b, w, md, s2)
+    _, jvjp = jax.vjp(jax.vmap(xla, in_axes=(0, 0, None)), jnp.asarray(a),
+                      jnp.asarray(b), jnp.asarray(w))
+    for got, ref in zip(leaves, jvjp(jnp.asarray(cot))):
+        ref = np.asarray(ref)
+        assert np.abs(got.grad.numpy() - ref).max() <= 1e-4 * np.abs(
+            ref).max()
 
 
 def test_conv_chain_autograd_route_matches_twin(monkeypatch):

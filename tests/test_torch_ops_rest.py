@@ -3,12 +3,13 @@ package's, from the same seeded numpy inputs on the CPU: the rotated and
 3D IoU matrices and their helpers (tests/test_iou.py's cases plus seeded
 random boxes), the 3D integral image and its query (test_voxel.py's case
 plus random boxes), point projection, the area mask, the BEV-border
-offsets (the JAX package's numpy module) and the metrics helpers.
+offsets (the JAX package's numpy module), the metric-to-BEV-pixel map
+and the metrics helpers.
 
 Tolerances: IoU 2e-6 absolute (float32 trigonometry and shoelace sums in
 both; IoU lies in [0, 1]); areas 1e-5 relative + 1e-6 absolute; integral
 sums of integer counts and the masks and border offsets exact; projected
-pixels 1e-5 relative."""
+pixels 1e-5 relative; BEV pixels exact (the same float32 arithmetic)."""
 import os
 
 import jax.numpy as jnp
@@ -21,8 +22,10 @@ from dodt_tpu.ops import iou as jiou
 from dodt_tpu.ops import label_offset as jlabel
 from dodt_tpu.ops import projection as jproj
 from dodt_tpu.ops import voxel as jvoxel
+from dodt_tpu.ops import warp as jwarp
 from dodt_tpu.utils import metrics as jmetrics
-from dodt_tpu_torch.ops import anchors, iou, label_offset, projection, voxel
+from dodt_tpu_torch.ops import (anchors, iou, label_offset, projection,
+                                 voxel, warp)
 from dodt_tpu_torch.utils import metrics
 
 
@@ -222,3 +225,33 @@ def test_metrics_helpers_match_jax(tmp_path):
     for k in got:
         assert got[k].keys() == want[k].keys()
         assert got[k]["n"] == want[k]["n"] == 3
+
+
+# tests/test_warp.py's extents on its 32 x 32 map, and a non-square map
+# over the BEV area above
+@pytest.mark.parametrize("ext,h,w", [
+    (((-8.0, 8.0), (0.0, 16.0)), 32, 32),
+    (((-40.0, 40.0), (0.0, 70.0)), 350, 400)])
+def test_bev_pixel_from_xz_matches_jax(ext, h, w):
+    """Metric (x, z) -> (row, col) on tensors and on floats, against
+    JAX's on the same float32 numbers: the map's corners and centre go
+    to the half-pixel edges and centre, and seeded points inside and
+    outside the map agree with JAX."""
+    rng = np.random.RandomState(8)
+    ae = np.asarray(ext, np.float32)
+    (x0, x1), (z0, z1) = ext
+    x = rng.uniform(x0 - 3, x1 + 3, 50).astype(np.float32)
+    z = rng.uniform(z0 - 3, z1 + 3, 50).astype(np.float32)
+    got = warp.bev_pixel_from_xz(torch.as_tensor(x), torch.as_tensor(z), ae,
+                                 h, w)
+    want = jwarp.bev_pixel_from_xz(jnp.asarray(x), jnp.asarray(z), ae, h, w)
+    for g, j in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+    for xs, zs, rc in ((x0, z1, (-0.5, -0.5)), (x1, z0, (h - 0.5, w - 0.5)),
+                       ((x0 + x1) / 2, (z0 + z1) / 2,
+                        ((h - 1) / 2, (w - 1) / 2))):
+        got_f = warp.bev_pixel_from_xz(xs, zs, ext, h, w)
+        assert got_f == pytest.approx(rc, abs=1e-9)
+        assert got_f == pytest.approx(jwarp.bev_pixel_from_xz(xs, zs, ext,
+                                                              h, w), abs=1e-9)
