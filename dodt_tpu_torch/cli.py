@@ -16,12 +16,14 @@ JAX CLI does when it sees more than one device, with ``--num_model`` the
 tensor-parallel width of the FC trunks and the other ranks on 'data'
 (``--batch_size`` is the global batch):
 
-  torchrun --nproc_per_node N python -m dodt_tpu_torch.cli train \
+  torchrun --nproc_per_node N -m dodt_tpu_torch.cli train \
       --config cfg.json --ckpt_dir out/ckpt --num_model M --batch_size B
 
-torchrun's environment starts the process group (NCCL on ``cuda``, each
-rank on the card of its LOCAL_RANK; gloo on ``cpu``); a caller that has
-started one already (``parallel.launch.spawn``) keeps it.
+(``--device cpu`` goes before ``train``; torchrun's ``--standalone``
+picks a free local port for the rendezvous.) torchrun's environment
+starts the process group (NCCL on ``cuda``, each rank on the card of its
+LOCAL_RANK; gloo on ``cpu``); a caller that has started one already
+(``parallel.launch.spawn``) keeps it.
 """
 from __future__ import annotations
 

@@ -4,9 +4,13 @@
 // (_corr_bottleneck_kernel):
 //   out[b, k, y, x] = (1 / C) * sum_d w[d, k] * sum_c A[b, y, x, c] *
 //                     B[b, y + dy_d, x + dx_d, c]
-// over the D x D displacements d = ky * D + kx, dy = (ky - r) * s2,
-// dx = (kx - r) * s2 (kernel_size 1, zero padding outside the map). The
-// D^2-channel correlation volume is never written.
+// over the D x D displacements d = ky * D + kx, dy = (ky - r) * s2 - o,
+// dx = (kx - r) * s2 - o (kernel_size 1, zero padding outside the map).
+// The grid's origin o = max_disp - r * s2 is that of the Pallas kernel
+// and of JAX's blur form, which the model computes; it sits o pixels up
+// and left of correlation_xla's centred grid (they differ only where
+// max_disp % s2 != 0). The D^2-channel correlation volume is never
+// written.
 //
 // The contraction is linear, so the kernel computes it in the other
 // order: for each channel c, the D x D (dilation s2) stencil of B_c with
@@ -29,7 +33,9 @@
 //     so every shared load of a warp is 32 consecutive float4s; the
 //     weights are warp-uniform (broadcast) loads;
 //   - a 32 x (P * warps) output tile (32 x 20 on the main path: 234
-//     blocks of 128 threads, 3 resident per SM) with an r s2 halo, staged
+//     blocks of 128 threads, 3 resident per SM) with an r s2 halo (r s2
+//     + o rows and columns before the tile, r s2 - o after: the origin
+//     moves only where the haloed tile is staged from), staged
 //     pixel-major with 4 channels a pixel (16-byte cp.async straight from
 //     the NHWC maps, zero fill outside the map) into a two-stage ring:
 //     channel slice s + 1 loads while slice s computes;
@@ -88,7 +94,7 @@ corr_bottleneck_kernel(const float* __restrict__ a,
                        const float* __restrict__ b,
                        const float* __restrict__ wts,
                        float* __restrict__ out, int h, int w, int c, int cb,
-                       int r_rt, int s2_rt) {
+                       int r_rt, int s2_rt, int origin) {
   constexpr int TH = P * NWY;
   constexpr int THREADS = 32 * NWY;
   constexpr bool FIXED = R >= 0;
@@ -117,13 +123,15 @@ corr_bottleneck_kernel(const float* __restrict__ a,
     w_s[e] = wts[(ky * d + kx) * cb + k];
   }
 
-  // copies of channel slice s (channels 4 s .. 4 s + 3) into its stage
+  // copies of channel slice s (channels 4 s .. 4 s + 3) into its stage;
+  // staged pixel (i, j) of B is the map's (y0 - reach - origin + i,
+  // x0 - reach - origin + j)
   auto stage_slice = [&](int s) {
     float4* st = smem4 + (s & 1) * stage;
     const int c0 = s * CK;
     for (int e = tid; e < bh * bw; e += THREADS) {
-      const int gy = y0 - reach + e / bw;
-      const int gx = x0 - reach + e % bw;
+      const int gy = y0 - reach - origin + e / bw;
+      const int gx = x0 - reach - origin + e % bw;
       const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
       cp_async16(st + e,
                  in ? b_img + ((long long)gy * w + gx) * c + c0 : b_img, in);
@@ -215,7 +223,7 @@ corr_bottleneck_kernel(const float* __restrict__ a,
 
 template <int P, int NWY, int R, int S2>
 int launch(const float* a, const float* b, const float* wts, float* out,
-           int nb, int h, int w, int c, int cb, int r, int s2,
+           int nb, int h, int w, int c, int cb, int r, int s2, int origin,
            cudaStream_t stream) {
   auto kernel = corr_bottleneck_kernel<P, NWY, R, S2>;
   const int smem = smem_bytes(P * NWY, r, s2);
@@ -229,17 +237,18 @@ int launch(const float* a, const float* b, const float* wts, float* out,
   dim3 grid((unsigned)((w + TW - 1) / TW),
             (unsigned)((h + P * NWY - 1) / (P * NWY)), (unsigned)(nb * cb));
   kernel<<<grid, 32 * NWY, smem, stream>>>(a, b, wts, out, h, w, c, cb, r,
-                                           s2);
+                                           s2, origin);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int S2, int... Rs>
 int dispatch_fixed(int r, const float* a, const float* b, const float* wts,
                    float* out, int nb, int h, int w, int c, int cb,
-                   cudaStream_t stream) {
+                   int origin, cudaStream_t stream) {
   int ret = -1;
   ((r == Rs ? (ret = launch<P_FIXED, NWY_FIXED, Rs, S2>(
-                   a, b, wts, out, nb, h, w, c, cb, Rs, S2, stream), 0)
+                   a, b, wts, out, nb, h, w, c, cb, Rs, S2, origin,
+                   stream), 0)
             : 0), ...);
   return ret;
 }
@@ -260,6 +269,8 @@ extern "C" int dodt_corr_bottleneck_smem_bytes(int max_disp, int stride2) {
 
 extern "C" int dodt_corr_bottleneck_max_smem() { return MAX_SMEM; }
 
+// On the blur's grid, as the Pallas kernel: origin max_disp % stride2
+// (see the top of this file).
 extern "C" int dodt_corr_bottleneck(const void* a, const void* b,
                                     const void* wts, void* out, int nb,
                                     int h, int w, int c, int max_disp,
@@ -275,12 +286,13 @@ extern "C" int dodt_corr_bottleneck(const void* a, const void* b,
       dodt_corr_bottleneck_smem_bytes(max_disp, stride2) > MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
   const int r = max_disp / stride2;
+  const int origin = max_disp % stride2;
   if (stride2 == 1 && fixed_instance(r, 1))
     return dispatch_fixed<1, 1, 2, 3, 4, 5, 6>(r, fa, fb, fw, fo, nb, h, w,
-                                               c, cb, st);
+                                               c, cb, origin, st);
   if (stride2 == 2 && fixed_instance(r, 2))
     return dispatch_fixed<2, 1, 2, 3>(r, fa, fb, fw, fo, nb, h, w, c, cb,
-                                      st);
+                                      origin, st);
   return launch<P_RT, NWY_RT, -1, 0>(fa, fb, fw, fo, nb, h, w, c, cb, r,
-                                     stride2, st);
+                                     stride2, origin, st);
 }

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from dodt_tpu_torch.config import FeatureExtractorConfig
 from dodt_tpu_torch.ops.conv_chain import conv_chain
+from dodt_tpu_torch.ops.resize import resize_bilinear
 
 KITTI_IMAGE_MEANS = (92.8403, 97.7996, 93.5843)  # img_feature_extractor.py:8
 
@@ -212,10 +213,10 @@ class VggPyramid(nn.Module):
                          norms)
         s = cfg.decode_stride
         if not cfg.pyramid:
-            # half-pixel bilinear, as jax.image.resize "bilinear"
-            f = F.interpolate(c4, size=(h.shape[2] // s, h.shape[3] // s),
-                              mode="bilinear", align_corners=False)
-            return f[:, :, ph // s:, pw // s:].permute(0, 2, 3, 1)
+            # jax.image.resize "bilinear", deterministic backward
+            f = resize_bilinear(c4.permute(0, 2, 3, 1),
+                                (h.shape[2] // s, h.shape[3] // s))
+            return f[:, ph // s:, pw // s:]
 
         u3 = self._norm_relu(self.upconv3(c4, self.dtype), norms)
         f3 = self._block(torch.cat([c3, u3], dim=1), "pyramid_fusion3", 1,

@@ -47,6 +47,7 @@ from dodt_tpu_torch.ops.losses import weighted_smooth_l1
 from dodt_tpu_torch.ops.anchors import (empty_anchor_mask,
                                         integral_image_2d, tile_anchors_3d)
 from dodt_tpu_torch.ops.correlation import corr_bottleneck, disp_grid
+from dodt_tpu_torch.ops.resize import resize_bilinear
 from dodt_tpu_torch.ops.dense_rpn import (build_bev_lattice, dense_bev_rois,
                                           dense_empty_anchor_mask)
 from dodt_tpu_torch.ops.nms import nms_bev_mode, top_k, top_k_prefilter
@@ -358,12 +359,10 @@ def decode_predictions(rep: str, prop_enc, box_offsets, angle_vecs, gp4):
 
 def _resize_to(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear-upsample NHWC (B, h, w, C) to (B, H, W, C) if needed
-    (half-pixel centres, as jax.image.resize "bilinear")."""
+    (jax.image.resize "bilinear"; its backward is deterministic)."""
     if tuple(x.shape[1:3]) == tuple(hw):
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw),
-                      mode="bilinear", align_corners=False)
-    return y.permute(0, 2, 3, 1)
+    return resize_bilinear(x, hw)
 
 
 def bev_crop_fn(crop_size: int, window: int, train: bool, map_shape,

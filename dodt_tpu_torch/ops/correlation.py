@@ -8,6 +8,22 @@ with its 1x1 bottleneck (kernel B3).
   dx = (kx - r) * stride_2, r = max_displacement // stride_2, D = 2r + 1,
   pad = max_displacement, zero padding outside the map.
 
+Two displacement grids. The correlation's (``correlation_xla``, the
+raw volume, B4) is centred: the offsets above. The blur's (JAX's
+``corr_bottleneck_blur``, the form the JAX model computes, and its
+Pallas kernel ``corr_bottleneck_pallas``) pads B by max_displacement
+before the map and (D - 1) stride_2 - max_displacement after it, so its
+offsets are (ky - r) * stride_2 - o with o = ``grid_origin`` =
+max_displacement - r * stride_2: the same grid wherever
+max_displacement % stride_2 == 0 (o = 0, every preset), one moved by o
+pixels up and left otherwise. B3 and the model's ``corr_bottleneck``
+take the blur's grid; the bottleneck's twin takes either (``origin``).
+(JAX's ``correlation_pallas_cf`` reads the blur's grid too, so JAX's
+public ``correlation`` moves by o between the TPU and other backends.
+B4, the port's raw volume, keeps the centred grid: it follows JAX's
+public op off the TPU, ``correlation_xla``, and so differs from the
+Pallas kernel it replaces where max_displacement % stride_2 != 0.)
+
 Counterpart of dodt_tpu/ops/correlation.py. ``correlation_cf`` /
 ``correlation`` replace the ``correlation_pallas_cf`` route of the
 public ops (CUDA kernel ``csrc/correlation_cf.cu``; no model calls
@@ -84,20 +100,36 @@ def disp_grid(max_displacement: int, stride_2: int):
     return radius, 2 * radius + 1
 
 
+def grid_origin(max_displacement: int, stride_2: int) -> int:
+    """How many pixels the blur's displacement grid sits up and left of
+    the correlation's: max_displacement - r * stride_2, in [0,
+    stride_2)."""
+    return max_displacement % stride_2
+
+
 def corr_bottleneck_plain(a: torch.Tensor, b: torch.Tensor,
                           weights: torch.Tensor, max_displacement: int,
-                          stride_2: int = 1) -> torch.Tensor:
+                          stride_2: int = 1, origin: int = 0
+                          ) -> torch.Tensor:
     """Twin: a, b (B, H, W, C); weights (D^2, Cb) -> (B, Cb, H, W), one
-    displacement at a time."""
+    displacement at a time, B read at (ky - r) * stride_2 - origin rows
+    and (kx - r) * stride_2 - origin columns: origin 0 is the
+    correlation's grid (JAX's ``corr_bottleneck_xla``), ``grid_origin``
+    the blur's (B3's)."""
+    if not 0 <= origin < stride_2:
+        raise ValueError(f"origin {origin}: need 0 <= origin < stride_2 "
+                         f"({stride_2})")
     nb, h, w, c = a.shape
     radius, d = disp_grid(max_displacement, stride_2)
-    pad = max_displacement
-    b_pad = F.pad(b, (0, 0, pad, pad, pad, pad))
+    lo = radius * stride_2 + origin
+    hi = radius * stride_2 - origin
+    # b_pad[:, y + ky s2, x + kx s2] is B at the displacement (ky, kx)
+    b_pad = F.pad(b, (0, 0, lo, hi, lo, hi))
     out = torch.zeros((nb, weights.shape[1], h, w), dtype=a.dtype,
                       device=a.device)
     for k in range(d * d):
-        dy = (k // d - radius) * stride_2 + pad
-        dx = (k % d - radius) * stride_2 + pad
+        dy = k // d * stride_2
+        dx = k % d * stride_2
         corr = (a * b_pad[:, dy:dy + h, dx:dx + w]).sum(-1) / c
         out += weights[k][None, :, None, None] * corr[:, None]
     return out
@@ -107,9 +139,10 @@ def corr_bottleneck_cuda(a: torch.Tensor, b: torch.Tensor,
                          weights: torch.Tensor, max_displacement: int,
                          stride_2: int = 1) -> torch.Tensor:
     """The kernel: a, b (B, H, W, C) f32, C % 8 == 0; weights (D^2, Cb)
-    f32, Cb <= 4 -> (B, Cb, H, W) f32. Any max_displacement and stride_2
-    whose haloed tiles fit the card's 227 KB of shared memory (r s2 up
-    to about 30)."""
+    f32, Cb <= 4 -> (B, Cb, H, W) f32, on the blur's grid (the Pallas
+    kernel's: the twin at ``grid_origin``). Any max_displacement and
+    stride_2 whose haloed tiles fit the card's 227 KB of shared memory
+    (r s2 up to about 30)."""
     _cuda.check_cuda_tensor("a", a, torch.float32, 4)
     _cuda.check_cuda_tensor("b", b, torch.float32, 4)
     _cuda.check_cuda_tensor("weights", weights, torch.float32, 2, align=4)
@@ -133,7 +166,8 @@ def corr_bottleneck_cuda(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((nb, cb, h, w), dtype=torch.float32, device=a.device)
     if out.numel():
         _KERNEL(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(weights),
-                _cuda.ptr(out), nb, h, w, c, max_displacement, stride_2, cb)
+                _cuda.ptr(out), nb, h, w, c, max_displacement, stride_2,
+                cb)
     return out
 
 
@@ -152,22 +186,19 @@ def corr_bottleneck_blur(a: torch.Tensor, b: torch.Tensor,
     probes/b3_blur_forms.py), whose output channel c * Cb + k is
     channel c of B under column k of the weights (JAX's tiled kernel
     order), in B's dtype; the reduce promotes A and the blur as JAX's
-    einsum does. B is padded by r * stride_2 on each side, the
-    displacement grid of the twin and the kernels. (JAX's blur pads
-    max_displacement before and (D - 1) * stride_2 - max_displacement
-    after, which is the same wherever max_displacement % stride_2 == 0,
-    and moves the grid by max_displacement - r * stride_2 pixels
-    otherwise: ROADMAP C20.)"""
+    einsum does. B is padded as JAX pads it, max_displacement before
+    the map and (D - 1) * stride_2 - max_displacement after it: the
+    blur's grid (``grid_origin``), B3's."""
     if a.dim() == 3:
         return corr_bottleneck_blur(a[None], b[None], weights,
                                     max_displacement, stride_2)[0]
     nb, h, w, c = a.shape
     radius, d = disp_grid(max_displacement, stride_2)
     cb = weights.shape[1]
-    span = radius * stride_2
+    lo = max_displacement
+    hi = (d - 1) * stride_2 - max_displacement
     kern = weights.to(b.dtype).t().reshape(cb, 1, d, d).repeat(c, 1, 1, 1)
-    b_pad = F.pad(b.permute(0, 3, 1, 2).contiguous(),
-                  (span, span, span, span))
+    b_pad = F.pad(b.permute(0, 3, 1, 2).contiguous(), (lo, hi, lo, hi))
     bw = F.conv2d(b_pad, kern, dilation=stride_2, groups=c)
     bw = bw.reshape(nb, c, cb, h, w)
     dt = torch.promote_types(a.dtype, bw.dtype)
@@ -190,9 +221,9 @@ def corr_bottleneck_vjp(a: torch.Tensor, b: torch.Tensor,
 
 
 class _CorrBottleneck(torch.autograd.Function):
-    """The kernel forward; the backward is ``corr_bottleneck_vjp``,
-    recomputed from the saved a, b and weights (there is no backward
-    kernel)."""
+    """The kernel forward on the blur's grid; the backward is
+    ``corr_bottleneck_vjp``, the blur's VJP on the same grid, recomputed
+    from the saved a, b and weights (there is no backward kernel)."""
 
     @staticmethod
     def forward(ctx, a, b, weights, max_displacement, stride_2):
@@ -211,16 +242,18 @@ class _CorrBottleneck(torch.autograd.Function):
 def corr_bottleneck(a: torch.Tensor, b: torch.Tensor, weights: torch.Tensor,
                     max_displacement: int, stride_2: int = 1
                     ) -> torch.Tensor:
-    """Fused correlation + 1x1 contraction, channel-first output:
-    (B, H, W, C) pairs -> (B, Cb, H, W); unbatched (H, W, C) -> (Cb, H,
-    W). Bias and norm are the caller's. Differentiable w.r.t. a, b and
-    the weights on both routes."""
+    """Fused correlation + 1x1 contraction on the blur's grid (JAX's
+    ``corr_bottleneck``, which the JAX model calls), channel-first
+    output: (B, H, W, C) pairs -> (B, Cb, H, W); unbatched (H, W, C) ->
+    (Cb, H, W). Bias and norm are the caller's. Differentiable w.r.t.
+    a, b and the weights on both routes."""
     if a.dim() == 3:
         return corr_bottleneck(a[None], b[None], weights, max_displacement,
                                stride_2)[0]
     if a.device.type == "cpu":
         return corr_bottleneck_plain(a, b, weights, max_displacement,
-                                     stride_2)
+                                     stride_2,
+                                     grid_origin(max_displacement, stride_2))
     if a.device.type != "cuda":
         raise ValueError(f"corr_bottleneck: no kernel for device {a.device}")
     return _CorrBottleneck.apply(
@@ -300,7 +333,10 @@ def correlation_cf(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
     """Channel-first correlation volume: (..., H, W, C) pairs ->
     (..., D^2, H, W), in the input dtype on the CPU and f32 on the card
     (bf16 or f16 maps are cast to f32 for the kernel, which sums in f32;
-    the gradient flows back through the cast)."""
+    the gradient flows back through the cast). On the centred grid, as
+    JAX's ``correlation_xla``: where max_displacement % stride_2 != 0
+    that is not the grid of ``correlation_pallas_cf``, which reads the
+    blur's."""
     if a.shape != b.shape or a.dim() < 3:
         raise ValueError(f"correlation_cf: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} must be equal (..., H, W, C)")

@@ -13,7 +13,8 @@
 #include <cmath>
 
 __global__ void naive(const float* a, const float* b, const float* wts, float* out,
-                      int nb, int h, int w, int c, int md, int s2, int cb) {
+                      int nb, int h, int w, int c, int md, int s2, int o,
+                      int cb) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y;
   int bi = blockIdx.z;
@@ -23,7 +24,7 @@ __global__ void naive(const float* a, const float* b, const float* wts, float* o
     double acc = 0;
     for (int ky = 0; ky < d; ++ky)
       for (int kx = 0; kx < d; ++kx) {
-        int yy = y + (ky - r) * s2, xx = x + (kx - r) * s2;
+        int yy = y + (ky - r) * s2 - o, xx = x + (kx - r) * s2 - o;
         if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
         double dot = 0;
         for (int ch = 0; ch < c; ++ch)
@@ -41,9 +42,9 @@ template <int P, int NWY, int R, int S2>
 void timeit(const char* tag, const float* a, const float* b, const float* w, float* o,
             int nb, int h, int wd, int c, int cb, int r, int s2) {
   cudaEvent_t e0, e1; cudaEventCreate(&e0); cudaEventCreate(&e1);
-  for (int i = 0; i < 3; ++i) launch<P, NWY, R, S2>(a, b, w, o, nb, h, wd, c, cb, r, s2, 0);
+  for (int i = 0; i < 3; ++i) launch<P, NWY, R, S2>(a, b, w, o, nb, h, wd, c, cb, r, s2, 0, 0);
   cudaEventRecord(e0);
-  for (int i = 0; i < 50; ++i) launch<P, NWY, R, S2>(a, b, w, o, nb, h, wd, c, cb, r, s2, 0);
+  for (int i = 0; i < 50; ++i) launch<P, NWY, R, S2>(a, b, w, o, nb, h, wd, c, cb, r, s2, 0, 0);
   cudaEventRecord(e1); cudaEventSynchronize(e1);
   float ms; cudaEventElapsedTime(&ms, e0, e1);
   int nblk = 0;
@@ -53,7 +54,7 @@ void timeit(const char* tag, const float* a, const float* b, const float* w, flo
 }
 
 int check(int nb, int h, int w, int c, int md, int s2, int cb) {
-  int r = md / s2, d = 2 * r + 1;
+  int r = md / s2, d = 2 * r + 1, o = md % s2;
   size_t n = (size_t)nb * h * w * c, no = (size_t)nb * cb * h * w;
   std::vector<float> ha(n), hb(n), hw(d * d * cb);
   unsigned s = 12345 + h * 7 + md;
@@ -67,7 +68,7 @@ int check(int nb, int h, int w, int c, int md, int s2, int cb) {
   cudaMemcpy(b, hb.data(), n * 4, cudaMemcpyHostToDevice);
   cudaMemcpy(wt, hw.data(), hw.size() * 4, cudaMemcpyHostToDevice);
   int rc = dodt_corr_bottleneck(a, b, wt, o1, nb, h, w, c, md, s2, cb, 0, 0);
-  naive<<<dim3((w + 127) / 128, h, nb), 128>>>(a, b, wt, o2, nb, h, w, c, md, s2, cb);
+  naive<<<dim3((w + 127) / 128, h, nb), 128>>>(a, b, wt, o2, nb, h, w, c, md, s2, o, cb);
   cudaDeviceSynchronize();
   std::vector<float> g1(no), g2(no);
   cudaMemcpy(g1.data(), o1, no * 4, cudaMemcpyDeviceToHost);
@@ -75,8 +76,8 @@ int check(int nb, int h, int w, int c, int md, int s2, int cb) {
   double e = 0, sc = 0;
   for (size_t i = 0; i < no; ++i) { e = fmax(e, fabs(g1[i] - g2[i])); sc = fmax(sc, fabs(g2[i])); }
   int ok = rc == 0 && e <= 1e-4 * sc;
-  printf("check nb %d h %d w %d c %d md %d s2 %d cb %d: rc %d err %.3g scale %.3g %s  (%s)\n",
-         nb, h, w, c, md, s2, cb, rc, e, sc, ok ? "OK" : "BAD", cudaGetErrorString(cudaGetLastError()));
+  printf("check nb %d h %d w %d c %d md %d s2 %d origin %d cb %d: rc %d err %.3g scale %.3g %s  (%s)\n",
+         nb, h, w, c, md, s2, o, cb, rc, e, sc, ok ? "OK" : "BAD", cudaGetErrorString(cudaGetLastError()));
   cudaFree(a); cudaFree(b); cudaFree(wt); cudaFree(o1); cudaFree(o2);
   return !ok;
 }
@@ -91,6 +92,7 @@ int main() {
   bad += check(1, 37, 29, 8, 9, 1, 2);    // run-time path
   bad += check(1, 30, 41, 16, 7, 3, 1);   // run-time path, s2 3
   bad += check(1, 20, 20, 8, 1, 2, 1);    // r = 0
+  bad += check(1, 37, 29, 8, 3, 2, 1);    // origin 1, r 1
   int h = 350, wd = 400, c = 32;
   size_t n = (size_t)h * wd * c;
   float *a, *b, *w, *o;

@@ -6,6 +6,8 @@ tracking fixture, plus ``dodt_tpu_torch.entry``, the twin of
 ``__graft_entry__.entry``."""
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -187,6 +189,50 @@ def test_entry_points_need_a_card_or_cpu(roots, tmp_path):
         with pytest.raises((RuntimeError, AssertionError)):
             cli.main(["train", "--config", cfg_path, "--ckpt_dir",
                       str(tmp_path / "c"), "--max_steps", "1"])
+
+
+def test_train_under_torchrun(roots, tmp_path, capsys):
+    """The documented multi-rank command, ``torchrun --nproc_per_node 2 -m
+    dodt_tpu_torch.cli --device cpu train ... --num_model 2`` (two gloo
+    ranks on a (1, 2) mesh; torchrun's ``--standalone`` picks a free
+    local port), one step: exit code 0, rank 0 prints the step's losses,
+    finite and within 1e-5 of the meshless CLI's first step (the FC
+    trunks' sums split over the ranks), and the checkpoint restores into
+    a meshless model."""
+    from dodt_tpu_torch.runtime.trainer import CheckpointIO
+
+    t_root, _ = roots
+    cfg_path = str(tmp_path / "cfg.json")
+    _tiny(t_root, "dt_avod_model").save(cfg_path)
+    ckpt = str(tmp_path / "ckpt")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torchrun = os.path.join(os.path.dirname(sys.executable), "torchrun")
+    run = subprocess.run(
+        [torchrun, "--standalone", "--nproc_per_node", "2", "-m",
+         "dodt_tpu_torch.cli", "--device", "cpu", "train", "--config",
+         cfg_path, "--ckpt_dir", ckpt, "--num_model", "2", "--max_steps",
+         "1"], cwd=root, env={**os.environ, "PYTHONPATH": root},
+        capture_output=True, text=True, timeout=180)
+    assert run.returncode == 0, run.stderr[-4000:]
+    printed = run.stdout
+    mesh = json.loads(printed[printed.index("[\n"):printed.index("\n]\n")
+                              + 2])
+    assert [h["step"] for h in mesh] == [1]
+    assert sorted(os.listdir(ckpt)) == ["1", "train_metrics.jsonl"]
+
+    cli.main(["--device", "cpu", "train", "--config", cfg_path,
+              "--ckpt_dir", str(tmp_path / "one"), "--max_steps", "1"])
+    printed = capsys.readouterr().out
+    one = json.loads(printed[printed.index("[\n"):printed.index("\n]\n")
+                             + 2])
+    for k, v in one[0].items():
+        if k not in ("step", "wall_s"):
+            assert np.isfinite(mesh[0][k])
+            assert abs(mesh[0][k] - v) <= 1e-5 * max(abs(v), 1.0), k
+    _, _, model = cli._build(cfg_path, "train")
+    params = CheckpointIO(ckpt).restore_params(1)
+    model.load_state_dict(params)
+    assert all(bool(torch.isfinite(p).all()) for p in params.values())
 
 
 def test_entry_twin(monkeypatch):

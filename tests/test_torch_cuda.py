@@ -314,9 +314,36 @@ def test_corr_bottleneck_kernel_matches_twin_at_every_cb(dev, md, s2, cb):
     before = tcorr._KERNEL.launches
     got = tcorr.corr_bottleneck(a, b, w, md, s2)
     assert tcorr._KERNEL.launches == before + 1
-    want = tcorr.corr_bottleneck_plain(a, b, w, md, s2)
+    want = tcorr.corr_bottleneck_plain(a, b, w, md, s2,
+                                       tcorr.grid_origin(md, s2))
     assert got.shape == want.shape == (2, cb, 37, 45)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md,s2", [(5, 2), (3, 2)])
+def test_corr_bottleneck_kernel_on_both_grids(dev, md, s2):
+    """Where max_displacement % stride_2 != 0: the model's op and the
+    kernel's wrapper each launch the kernel on the blur's grid
+    (grid_origin 1) and equal the twin there, 1e-4 of the range (f32
+    sums in another order); the twin on the centred grid parts from
+    it."""
+    g = torch.Generator().manual_seed(15)
+    _, d = tcorr.disp_grid(md, s2)
+    a, b = (torch.randn(2, 37, 45, 8, generator=g).to(dev)
+            for _ in range(2))
+    w = (torch.randn(d * d, 2, generator=g) / d).to(dev)
+    origin = tcorr.grid_origin(md, s2)
+    assert origin == 1
+    before = tcorr._KERNEL.launches
+    blur_grid = tcorr.corr_bottleneck(a, b, w, md, s2)
+    direct = tcorr.corr_bottleneck_cuda(a, b, w, md, s2)
+    assert tcorr._KERNEL.launches == before + 2
+    want = tcorr.corr_bottleneck_plain(a, b, w, md, s2, origin)
+    want_c = tcorr.corr_bottleneck_plain(a, b, w, md, s2)
+    for got in (blur_grid, direct):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (want - want_c).abs().max() > 0.1 * want.abs().max()
 
 
 @pytest.mark.cuda
@@ -334,7 +361,8 @@ def test_corr_bottleneck_gradients_are_the_twins_at_other_shapes(dev, md,
     kern = [x.clone().requires_grad_() for x in (a, b, w)]
     (tcorr.corr_bottleneck(*kern, md, s2) * cot).sum().backward()
     twins = [x.clone().requires_grad_() for x in (a, b, w)]
-    (tcorr.corr_bottleneck_plain(*twins, md, s2) * cot).sum().backward()
+    (tcorr.corr_bottleneck_plain(*twins, md, s2, tcorr.grid_origin(md, s2))
+     * cot).sum().backward()
     for got, want in zip(kern, twins):
         torch.testing.assert_close(got.grad, want.grad, rtol=1e-5,
                                    atol=1e-5)
@@ -354,6 +382,34 @@ def test_corr_bottleneck_blur_matches_twin(dev, md, s2, cb):
     before = tcorr._KERNEL.launches
     got = tcorr.corr_bottleneck_blur(a, b, w, md, s2)
     assert tcorr._KERNEL.launches == before
-    want = tcorr.corr_bottleneck_plain(a, b, w, md, s2)
+    want = tcorr.corr_bottleneck_plain(a, b, w, md, s2,
+                                       tcorr.grid_origin(md, s2))
     assert got.shape == want.shape == (2, cb, 37, 45)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_resize_backward_is_reproducible(dev):
+    """The BEV bottleneck's upsample at the flagship's shape, (2, 350,
+    400, 1) -> (700, 800) f32: its backward run twice from one input and
+    cotangent is bit-equal (it gathers; F.interpolate's CUDA backward
+    sums with atomics), and forward and gradient are the CPU's to 1e-6
+    of the range (two-tap f32 sums in the same order)."""
+    from dodt_tpu_torch.ops.resize import resize_bilinear
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(2, 350, 400, 1, generator=g)
+    cot = torch.randn(2, 700, 800, 1, generator=g)
+    grads = []
+    for _ in range(2):
+        xd = x.to(dev).requires_grad_()
+        out = resize_bilinear(xd, (700, 800))
+        out.backward(cot.to(dev))
+        grads.append(xd.grad)
+    assert torch.equal(grads[0], grads[1])
+    xc = x.clone().requires_grad_()
+    want = resize_bilinear(xc, (700, 800))
+    want.backward(cot)
+    assert (out.detach().cpu() - want.detach()).abs().max() <= \
+        1e-6 * want.abs().max()
+    assert (grads[0].cpu() - xc.grad).abs().max() <= 1e-6 * \
+        xc.grad.abs().max()

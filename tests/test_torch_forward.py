@@ -6,7 +6,10 @@ output key, on the CPU in float32.
 The fixture (tests/test_streaming.py's) has 3072 anchors: the default
 fusion_top_k = 8192 takes the single-pass RPN, 1024 the two-pass branch.
 The two-pass case also sets expand_proposals_xz = 0.3, which only the
-monolithic forward applies. Tolerances: f32 summation-order rounding
+monolithic forward applies. A third case runs the correlation at
+max_displacement 5 and stride_2 2 (D = 5, the fixture's weights), where
+the JAX model's blur reads B one pixel off the centred grid (ROADMAP
+C20). Tolerances: f32 summation-order rounding
 (1e-5 on features and logits, 1e-4 on metric boxes); masks, tie order,
 NMS picks and indices are equal. The final outputs are held as
 tests/test_streaming.py holds the JAX streaming path against __call__.
@@ -69,10 +72,11 @@ def fixture(tmp_path_factory):
     return cfg, params, batch
 
 
-def _configured(cfg, fusion_top_k, expand):
+def _configured(cfg, fusion_top_k, expand, correlation=None):
     return dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, expand_proposals_xz=expand,
-        rpn=dataclasses.replace(cfg.model.rpn, fusion_top_k=fusion_top_k)))
+        rpn=dataclasses.replace(cfg.model.rpn, fusion_top_k=fusion_top_k),
+        correlation=correlation or cfg.model.correlation))
 
 
 def _torch_model(cfg, params):
@@ -85,8 +89,11 @@ def _tensors(batch):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module", params=[(8192, 0.0), (1024, 0.3)],
-                ids=["single_pass", "two_pass_expand"])
+@pytest.fixture(scope="module", params=[
+    (8192, 0.0), (1024, 0.3),
+    (8192, 0.0, cfg_mod.CorrelationConfig(max_displacement=5, padding=5,
+                                          stride_2=2))],
+    ids=["single_pass", "two_pass_expand", "single_pass_stride_2"])
 def outputs(request, fixture):
     cfg0, params, batch = fixture
     cfg = _configured(cfg0, *request.param)

@@ -150,9 +150,13 @@ def test_roi_window_twin_matches_gather_where_rois_fit():
 @pytest.mark.parametrize("h,w,c,cb,md,s2", [
     (20, 24, 8, 1, 5, 1),      # the model's displacement range
     (12, 12, 4, 2, 4, 2),      # stride_2 = 2, two bottleneck channels
+    (12, 13, 8, 2, 5, 2),      # the blur's grid one pixel off the centred
+    (11, 12, 8, 1, 3, 2),      # one (max_displacement % stride_2 = 1)
 ])
 def test_corr_bottleneck_twin_matches_pallas_interpret(h, w, c, cb, md, s2):
-    """f32 sums of D^2 x C products in another order: 1e-5."""
+    """The model's op on the CPU (B3's twin on the blur's grid) against
+    the Pallas kernel, which reads B on that grid too, and JAX's blur:
+    f32 sums of D^2 x C products in another order, 1e-5."""
     rng = np.random.RandomState(5)
     a = rng.randn(h, w, c).astype(np.float32)
     b = rng.randn(h, w, c).astype(np.float32)
@@ -310,21 +314,25 @@ def _kernel_standin(plain):
 
 
 @pytest.mark.parametrize("md,s2,cb", [(5, 1, 1), (4, 2, 2), (5, 2, 3),
-                                      (2, 1, 1)])
+                                      (2, 1, 1), (3, 2, 1)])
 def test_corr_bottleneck_autograd_route_matches_twin(monkeypatch, md, s2,
                                                      cb):
     """B3's CUDA route (``_CorrBottleneck``) with the kernel call replaced
-    by a graph-less stand-in: the output carries a grad_fn, its backward
-    goes through ``corr_bottleneck_vjp`` once (a spy), and the gradients
-    w.r.t. a, b and the weights are the twin's autograd to 1e-6, in f64:
-    the twin's loop and the blur's conv sum in other orders, which in
-    f32 alone parts them by a few 1e-6. From the same inputs in f32 they
-    are also jax.vjp's of ``corr_bottleneck_xla`` (the JAX custom_vjp's
-    backward) within 1e-4 of the largest gradient. Without the Function
-    the kernel's output has no graph, so the weights would get no
-    gradient on the card."""
-    monkeypatch.setattr(tcorr, "corr_bottleneck_cuda",
-                        _kernel_standin(tcorr.corr_bottleneck_plain))
+    by a graph-less stand-in (the twin on the blur's grid, the kernel's
+    own): the output carries a grad_fn, its backward goes through
+    ``corr_bottleneck_vjp`` once (a spy), and the gradients w.r.t. a, b
+    and the weights are the autograd of the twin on the same grid to
+    1e-6, in f64: the twin's loop and the blur's conv sum in other
+    orders, which in f32 alone parts them by a few 1e-6. From the same
+    inputs in f32 they are also jax.vjp's of JAX's ``corr_bottleneck``
+    (the JAX model's op) within 1e-4 of the largest gradient. Without
+    the Function the kernel's output has no graph, so the weights would
+    get no gradient on the card."""
+    origin = tcorr.grid_origin(md, s2)
+
+    def standin(*args):
+        return _kernel_standin(tcorr.corr_bottleneck_plain)(*args, origin)
+    monkeypatch.setattr(tcorr, "corr_bottleneck_cuda", standin)
     calls, vjp = [], tcorr.corr_bottleneck_vjp
 
     def spy(*args):
@@ -346,17 +354,17 @@ def test_corr_bottleneck_autograd_route_matches_twin(monkeypatch, md, s2,
     assert calls == [(md, s2)]
     twins = [torch.from_numpy(t).double().requires_grad_()
              for t in (a, b, w)]
-    (tcorr.corr_bottleneck_plain(*twins, md, s2)
+    (tcorr.corr_bottleneck_plain(*twins, md, s2, origin)
      * torch.from_numpy(cot).double()).sum().backward()
     for got, want in zip(leaves, twins):
         torch.testing.assert_close(got.grad, want.grad, rtol=1e-6,
                                    atol=1e-6)
     assert float(leaves[2].grad.abs().max()) > 0
 
-    def xla(a, b, w):
-        return jcorr.corr_bottleneck_xla(a, b, w, md, s2)
-    _, jvjp = jax.vjp(jax.vmap(xla, in_axes=(0, 0, None)), jnp.asarray(a),
-                      jnp.asarray(b), jnp.asarray(w))
+    def model_op(a, b, w):
+        return jcorr.corr_bottleneck(a, b, w, md, s2)
+    _, jvjp = jax.vjp(jax.vmap(model_op, in_axes=(0, 0, None)),
+                      jnp.asarray(a), jnp.asarray(b), jnp.asarray(w))
     for got, ref in zip(leaves, jvjp(jnp.asarray(cot))):
         ref = np.asarray(ref)
         assert np.abs(got.grad.numpy() - ref).max() <= 1e-4 * np.abs(
