@@ -14,11 +14,13 @@ and its reason on stdout and stderr, and prints no result:
      maps, f32 and bf16; B3 and its blur form, corr_bottleneck_blur, at
      the main path's and other D, strides, Cb and odd maps, on the
      blur's displacement grid (the model's) and, where max_displacement
-     % stride_2 != 0, the kernel on the centred grid too; B4 at the
-     public op's and at other D, strides, channels, odd maps, N = 3 and
-     bf16 inputs), and time both after warm-up (timed(): per-call time
-     through the wrapper, device time with the host out of the way, host
-     time per enqueue); B4's gradient route against the twin's autograd;
+     % stride_2 != 0, the twin on the centred grid too; B4 on the Pallas
+     kernel's grid at the public op's and at other D, strides ((5, 2)
+     and (3, 2) at the full-width shape), channels, odd maps, N = 3 and
+     bf16 inputs (a bf16 volume)), and time both after warm-up (timed():
+     per-call time through the wrapper, device time with the host out
+     of the way, host time per enqueue); B4's gradient route against
+     the twin's autograd;
   3. run the full-width cars_dt_tracking slice (seeded random weights,
      make_batch inputs, 65536 points) through StreamingPredictor on
      the static arm and the ego-motion arm; outputs must be finite and
@@ -112,7 +114,7 @@ and its reason on stdout and stderr, and prints no result:
      tensors through the host), each against this process's run of the
      same program: a (2, 1) step at B = 2 (its losses and state against
      the two couples' computed one by one in one process, split_step,
-     the RPN's and correlation's losses against the B = 2 step's too,
+     the RPN's losses against the B = 2 step's too,
      and how many proposals the B = 2 forward swaps against each
      couple's own logged), the (1, 2)
      TP forward (check_tp_forward: each output within one bf16 ulp,
@@ -123,7 +125,16 @@ and its reason on stdout and stderr, and prints no result:
  18. the last ported ops on the card against the CPU (rotated and 3D IoU,
      the 3D integral image and its query, point projection, the area
      mask, bev_pixel_from_xz) and the metrics helpers (device_sync,
-     StepTimer, profile_trace) on the card.
+     StepTimer, profile_trace) on the card;
+ 20. the full-width BEV rasterization on the card against the CPU, bit
+     for bit, on bench's points and on points on every cell and slice
+     edge, and how many edge coordinates dividing by the voxel size puts
+     in another cell on the card than on the CPU;
+ 21. the flagship's full-width monolithic forward (bf16 towers, seeded
+     weights, bench's couple) on the card against the CPU: bev_input
+     bit-equal, the top proposals matched as sets, the valid final
+     counts within a fifth (tests/test_torch_full_width_forward.py's
+     bf16 rule).
 
 Phase 2 also holds B3's and B1's autograd routes against the twins'
 autograd: B3's kernel forward with its backward through the blur form
@@ -610,14 +621,18 @@ def kernel_checks(dev):
               nbytes(a, b, w) + px * 4)
 
     # B4: the raw volume, (1, 350, 400, 32) f32, d = 5 -> (1, 121, 350, 400)
-    # (67.8 MB); D = 5 and D = 11 at stride_2 = 2, D = 21, C = 8, 16 and
-    # 64, odd maps, N = 3, and bf16 inputs (an f32 volume, held against
-    # the twin on the inputs' f32 values). f32 sums of C products in
-    # another order: 1e-5 of the range.
+    # (67.8 MB); D = 5 and D = 11 at stride_2 = 2, D = 3 at stride_2 = 2,
+    # D = 21, C = 8, 16 and 64, odd maps, N = 3, and bf16 inputs (the f32
+    # kernel's volume cast to bf16, the f32 volume held against the twin
+    # on the inputs' f32 values), each against the twin on the Pallas
+    # kernel's grid (origin 1 at (5, 2) and (3, 2)). f32 sums of C
+    # products in another order: 1e-5 of the range.
     err = 0.0
     for shape, md, s2, dtype in (
             ((1, 350, 400, 32), 5, 1, torch.float32),
             ((2, 64, 96, 32), 5, 2, torch.float32),
+            ((1, 350, 400, 32), 5, 2, torch.float32),
+            ((1, 350, 400, 32), 3, 2, torch.float32),
             ((2, 61, 77, 32), 10, 2, torch.float32),
             ((1, 45, 67, 16), 10, 1, torch.float32),
             ((3, 40, 72, 8), 5, 1, torch.float32),
@@ -626,15 +641,22 @@ def kernel_checks(dev):
         aa, bb = (a, b) if shape == tuple(a.shape) else (
             torch.randn(shape, generator=g).to(dev, dtype) for _ in range(2))
         got = corr.correlation_cf(aa, bb, md, s2)
-        want = corr.correlation_cf_plain(aa.float(), bb.float(), md, s2)
-        check(got.shape == want.shape and got.dtype == torch.float32,
-              f"correlation_cf shape {got.shape} {got.dtype}")
-        e, scale = rel_err(got, want)
-        del got, want
+        vol = got if dtype == torch.float32 else corr.correlation_cf_cuda(
+            aa.float().contiguous(), bb.float().contiguous(), md, s2)
+        check(got.dtype == dtype and torch.equal(got, vol.to(dtype)),
+              f"correlation_cf {got.dtype} is not the kernel's volume in "
+              f"the input dtype {dtype}")
+        origin = corr.grid_origin(md, s2)
+        want = corr.correlation_cf_plain(aa.float(), bb.float(), md, s2,
+                                         origin)
+        check(got.shape == want.shape, f"correlation_cf shape {got.shape}")
+        e, scale = rel_err(vol, want)
+        del got, vol, want
         log(f"B4 correlation_cf {tuple(aa.shape)} {str(dtype)[6:]} d {md} "
-            f"stride_2 {s2}: max_abs_err {e:.4g} (max |ref| {scale:.4g})")
+            f"stride_2 {s2} (grid origin {origin}): max_abs_err {e:.4g} "
+            f"(max |ref| {scale:.4g})")
         check(e <= 1e-5 * scale, f"correlation_cf disagrees: {e}")
-        if aa is a:
+        if aa is a and s2 == 1:
             err = e
     # the CUDA route's gradients are the twin's autograd
     ga, gb = (torch.randn((1, 20, 24, 8), generator=g).to(dev)
@@ -2583,11 +2605,11 @@ MESH_CARDS_DEADLINE_S = 300.0
 STATE_FLOOR = {"params": 1e-6, "ema_params": 1e-6, "mu": 1e-4, "nu": 1e-4,
                "trace": 1e-4}
 # losses a mesh step is also held to the one-process step at the global
-# batch by (1e-3): the RPN's and the correlation's, which no proposal
-# feeds (the second stage's losses follow which proposals win, and a
-# near-tie can fall either way between batch sizes: phase 17(b) logs
-# proposal_swaps)
-BATCH_FREE_LOSSES = ("rpn_cls", "rpn_reg", "corr")
+# batch by (1e-3): the RPN's, which no proposal feeds (the second stage's
+# and the correlation's losses weigh the proposals that match a ground
+# truth box, so they follow which proposals win, and a near-tie can fall
+# either way between batch sizes: phase 17(b) logs proposal_swaps)
+BATCH_FREE_LOSSES = ("rpn_cls", "rpn_reg")
 
 
 def smoke_model(cfg):
@@ -3254,6 +3276,153 @@ def rest_ops_cuda_vs_cpu(dev):
     return worst
 
 
+# ---------------------------------------------------------------- phase 20
+
+def voxel_edge_points(ku):
+    """(P, 3) points on every x edge of the BEV grid (at z = 35.05) and
+    every z edge (at x = 0.05), each at the height-slice edges above the
+    plane y = 1.65 and between them: the f32 nearest each edge."""
+    bg = ku.bev_generator
+    area = np.asarray(ku.area_extents, np.float64)
+    vs = ku.voxel_size
+
+    def edges(lo, hi):
+        n = int(round((hi - lo) / vs))
+        return np.float32(lo + vs * np.arange(1, n, dtype=np.float64))
+
+    div = (bg.height_hi - bg.height_lo) / bg.num_slices
+    ys = np.float32(EDGE_PLANE[3] - (bg.height_lo + div * np.arange(
+        0.0, bg.num_slices, 0.5)))
+    xs, zs = edges(*area[0]), edges(*area[2])
+    strip_x = np.stack(np.broadcast_arrays(
+        xs[:, None], ys[None, :], np.float32(35.05)), -1).reshape(-1, 3)
+    strip_z = np.stack(np.broadcast_arrays(
+        np.float32(0.05), ys[None, :], zs[:, None]), -1).reshape(-1, 3)
+    return np.concatenate([strip_x, strip_z]).astype(np.float32)
+
+
+EDGE_PLANE = np.float32([0.0, -1.0, 0.0, 1.65])
+
+
+def rasterization_cuda_vs_cpu(dev):
+    """The full-width BEV rasterization on the card against the CPU, bit
+    for bit: bench's points (make_batch, seed 0, both frames) and points
+    on every cell and slice edge (voxel_edge_points). Also counts the
+    edge coordinates whose cell the division (x - lo) / voxel_size
+    gives differently on the card (a CUDA tensor divided by a Python
+    number is multiplied by its f32 reciprocal, as jitted XLA) and on
+    the CPU (the true quotient)."""
+    import torch
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
+    from dodt_tpu_torch.ops.voxel import bev_maps_from_points
+
+    cfg = cars_dt_tracking()
+    cfg.dataset.max_points = 65536
+    ku = cfg.dataset.kitti_utils
+    bg = ku.bev_generator
+    batch = make_batch(cfg, np.random.RandomState(0))
+    edges = voxel_edge_points(ku)
+    clouds = {f"bench frame {f}": (batch["points"][0, f],
+                                   batch["points_valid"][0, f],
+                                   batch["ground_plane"][0])
+              for f in range(2)}
+    clouds["edges"] = (edges, np.ones(len(edges), bool), EDGE_PLANE)
+    cells = {}
+    for name, (pts, valid, gp) in clouds.items():
+        maps = [bev_maps_from_points(
+            torch.as_tensor(pts, device=d), torch.as_tensor(valid, device=d),
+            torch.as_tensor(gp, device=d), ku.area_extents, ku.voxel_size,
+            bg.height_lo, bg.height_hi, bg.num_slices) for d in (dev, "cpu")]
+        f_diff = int((maps[0].features.cpu() != maps[1].features).sum())
+        o_diff = int((maps[0].occupancy.cpu() != maps[1].occupancy).sum())
+        cells[name] = int(maps[1].occupancy.sum())
+        log(f"phase 20 {name}: {len(pts)} points, {cells[name]} occupied "
+            f"cells, card vs CPU: {f_diff} feature values and {o_diff} "
+            f"occupancy cells differ")
+        check(f_diff == 0 and o_diff == 0,
+              f"rasterization of {name} card vs CPU: {f_diff} feature "
+              f"values, {o_diff} occupancy cells differ")
+    moved = 0
+    for axis in (0, 2):
+        v = torch.as_tensor(edges[:, axis]) - float(ku.area_extents[axis][0])
+        cpu = torch.floor(v / ku.voxel_size)
+        card = torch.floor(v.to(dev) / ku.voxel_size).cpu()
+        moved += int((cpu != card).sum())
+    log(f"phase 20: dividing by the voxel size puts {moved} of "
+        f"{2 * len(edges)} edge coordinates in another cell on the card "
+        f"than on the CPU")
+    return {"edge_points": len(edges), "moved_by_division": moved,
+            "cells": cells}
+
+
+# ---------------------------------------------------------------- phase 21
+
+# the flagship's bf16 forward, card against CPU (tests/
+# test_torch_full_width_forward.py's bf16 rule): the share of the CPU's
+# valid top proposals with a card proposal within 5e-2 (m, over the six
+# anchor values) and 1e-2 in score, and the largest difference of the
+# valid final counts as a share of the CPU's
+FLAGSHIP_TOP = (5e-2, 0.98)
+FLAGSHIP_COUNT_SHARE = 0.2
+
+
+def flagship_forward_cuda_vs_cpu(dev):
+    """The full-width monolithic forward of cars_dt_tracking (bf16
+    towers, init_params seed 0, bench's couple) on the card and on the
+    CPU with the same weights: bev_input bit-equal, the top proposals
+    matched as sets, the valid final counts close; the finals' set
+    shares within 1e-2 and 0.5 logged."""
+    import copy
+    import torch
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+
+    cfg = cars_dt_tracking()
+    cfg.dataset.max_points = 65536
+    check(cfg.model.tower_dtype == "bfloat16", "the flagship's towers")
+    cpu_model = DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS)
+    init_params(cpu_model, torch.Generator().manual_seed(0))
+    cpu_model.eval()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    host = make_batch(cfg, np.random.RandomState(0))
+    og = gpu_model({k: torch.as_tensor(v, device=dev)
+                    for k, v in host.items()})
+    t0 = time.perf_counter()
+    oc = cpu_model({k: torch.as_tensor(v) for k, v in host.items()})
+    cpu_s = time.perf_counter() - t0
+    check_forward(og, 1, cfg)
+    og = {k: v.cpu() for k, v in og.items() if v is not None}
+    diff = int((og["bev_input"] != oc["bev_input"]).sum())
+    check(diff == 0, f"flagship bev_input card vs CPU: {diff} values differ")
+    res = {"cpu_forward_s": cpu_s, "frames": []}
+    for f in range(2):
+        def rows(o, boxes, scores):
+            return torch.cat([o[boxes][0, f], o[scores][0, f, :, None]], -1)
+        top = matched_fraction(
+            rows(oc, "top_anchors", "top_scores"),
+            rows(og, "top_anchors", "top_scores"), oc["top_valid"][0, f],
+            og["top_valid"][0, f], FLAGSHIP_TOP[0])
+        vc, vg = oc["final_valid"][0, f], og["final_valid"][0, f]
+        fin = [matched_fraction(rows(oc, "final_boxes_3d", "final_scores"),
+                                rows(og, "final_boxes_3d", "final_scores"),
+                                vc, vg, tol) for tol in (1e-2, 0.5)]
+        nc, ng = int(vc.sum()), int(vg.sum())
+        res["frames"].append({"top_share": top, "valid_cpu": nc,
+                              "valid_card": ng, "final_share_1e-2": fin[0],
+                              "final_share_0.5": fin[1]})
+        log(f"phase 21 frame {f}: top proposals matched within "
+            f"{FLAGSHIP_TOP[0]} {top:.4f}; valid finals card {ng} CPU {nc}; "
+            f"finals matched within 1e-2 {fin[0]:.4f}, within 0.5 "
+            f"{fin[1]:.4f}")
+        check(top >= FLAGSHIP_TOP[1], f"frame {f}: top proposals {top}")
+        check(nc > 0 and abs(ng - nc) <= FLAGSHIP_COUNT_SHARE * nc,
+              f"frame {f}: valid final counts card {ng} CPU {nc}")
+    return res
+
+
 # ---------------------------------------------------------------- phase 19
 
 def mesh_cards(dev, counters, n):
@@ -3742,6 +3911,12 @@ def main():
         log("phase 17(b): two gloo ranks equal one process")
         rest_ops_cuda_vs_cpu(dev)
         log("phase 18: the last ported ops agree with the CPU on the card")
+        raster = rasterization_cuda_vs_cpu(dev)
+        log("phase 20: the rasterization is bit-equal on the card and the "
+            "CPU")
+        flagship = flagship_forward_cuda_vs_cpu(dev)
+        log("phase 21: the flagship's full-width forward agrees with the "
+            "CPU")
     except PhaseError as exc:
         return fail(str(exc))
     except Exception as exc:                 # a build or launch error
@@ -3847,6 +4022,19 @@ def main():
               f"{rank['evaluate']['wall_s']:.4f} (one process "
               f"{mesh_b['want']['evaluate']['wall_s']:.4f}); peak device "
               f"memory {rank['peak_mib']:.0f} MiB on {card}")
+    print(f"rasterization card vs CPU: bit-equal on bench's points (2 "
+          f"frames, 65536 points each) and {raster['edge_points']} points "
+          f"on cell and slice edges; dividing by the voxel size puts "
+          f"{raster['moved_by_division']} edge coordinates in another cell "
+          f"on the card than on the CPU")
+    for f, fr in enumerate(flagship["frames"]):
+        print(f"flagship forward card vs CPU (full width, bf16 towers) frame "
+              f"{f}: bev_input bit-equal, top proposals matched "
+              f"{fr['top_share']:.4f}, valid finals card {fr['valid_card']} "
+              f"CPU {fr['valid_cpu']}, finals matched within 1e-2 "
+              f"{fr['final_share_1e-2']:.4f}, within 0.5 "
+              f"{fr['final_share_0.5']:.4f}; CPU forward "
+              f"{flagship['cpu_forward_s']:.2f} s on {card}")
     for line in kernel_lines(kern, card):
         print(line)
     # launches in each path's run, and per keyframe (pushes, the first of

@@ -4,9 +4,13 @@
 // (_corr_kernel_cf):
 //   out[b, k, y, x] = (1 / C) * sum_c A[b, y, x, c] *
 //                     B[b, y + dy_k, x + dx_k, c]
-// over the D x D displacements k = ky * D + kx, dy = (ky - r) * stride2,
-// dx = (kx - r) * stride2, r = max_disp / stride2, zero padding outside
-// the map. No model calls it; it is the public correlation op.
+// over the D x D displacements k = ky * D + kx, dy = (ky - r) * stride2
+// - o, dx = (kx - r) * stride2 - o, r = max_disp / stride2, zero padding
+// outside the map. The grid's origin o = max_disp - r * stride2 is that
+// of the Pallas kernel (B at ky * stride2 - max_disp rows off the
+// output's, dodt_tpu/ops/correlation.py:103-105): 0 wherever max_disp %
+// stride2 == 0, where it is correlation_xla's centred grid. No model
+// calls it; it is the public correlation op.
 //
 // What bounds it on the H100: writing the volume. At the largest shape
 // the port sees (350 x 400 x 32 f32 maps, D = 11) the output is
@@ -87,7 +91,8 @@ template <int DT, int P, int S2, int STAGES, int MINB>
 __global__ void __launch_bounds__(32 * DT, MINB)
 correlation_cf_kernel(const float* __restrict__ a,
                       const float* __restrict__ b, float* __restrict__ out,
-                      int h, int w, int c, int d_rt, int s2_rt) {
+                      int h, int w, int c, int d_rt, int s2_rt,
+                      int origin) {
   constexpr bool EXACT = S2 > 0;
   const int d = EXACT ? DT : d_rt;
   const int s2 = EXACT ? S2 : s2_rt;
@@ -108,13 +113,15 @@ correlation_cf_kernel(const float* __restrict__ a,
   const float* a_img = a + (long long)bi * h * w * c;
   const float* b_img = b + (long long)bi * h * w * c;
 
-  // copies of channel slice s (channels 4 s .. 4 s + 3) into its stage
+  // copies of channel slice s (channels 4 s .. 4 s + 3) into its stage;
+  // staged pixel (i, j) of B is the map's (y0 - reach - origin + i,
+  // x0 - reach - origin + j)
   auto stage_slice = [&](int s) {
     float4* st = smem4 + (s % STAGES) * stage;
     const int c0 = s * CK;
     for (int e = tid; e < bh * bw; e += nthreads) {
-      const int gy = y0 - reach + e / bw;
-      const int gx = x0 - reach + e % bw;
+      const int gy = y0 - reach - origin + e / bw;
+      const int gx = x0 - reach - origin + e % bw;
       const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
       cp_async16(st + e,
                  in ? b_img + ((long long)gy * w + gx) * c + c0 : b_img, in);
@@ -202,7 +209,7 @@ correlation_cf_kernel(const float* __restrict__ a,
 
 template <int DT, int P, int S2, int STAGES, int MINB>
 int launch(const float* a, const float* b, float* out, int nb, int h, int w,
-           int c, int d, int s2, cudaStream_t stream) {
+           int c, int d, int s2, int origin, cudaStream_t stream) {
   auto kernel = correlation_cf_kernel<DT, P, S2, STAGES, MINB>;
   const int smem = STAGES * stage_len(P, d, s2) * 16;
   cudaError_t err = cudaFuncSetAttribute(
@@ -210,25 +217,29 @@ int launch(const float* a, const float* b, float* out, int nb, int h, int w,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((unsigned)((w + TW - 1) / TW), (unsigned)((h + P - 1) / P),
             (unsigned)nb);
-  kernel<<<grid, 32 * d, smem, stream>>>(a, b, out, h, w, c, d, s2);
+  kernel<<<grid, 32 * d, smem, stream>>>(a, b, out, h, w, c, d, s2,
+                                         origin);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DT, int P, int MINB>
 int dispatch(const float* a, const float* b, float* out, int nb, int h,
-             int w, int c, int d, int s2, int stages, cudaStream_t stream) {
+             int w, int c, int d, int s2, int origin, int stages,
+             cudaStream_t stream) {
   if (stages == 2)       // a halo too wide for four stages
-    return launch<DT, P, 0, 2, MINB>(a, b, out, nb, h, w, c, d, s2, stream);
+    return launch<DT, P, 0, 2, MINB>(a, b, out, nb, h, w, c, d, s2, origin,
+                                     stream);
   // D = 21 as constants spills at 672 threads' 96 registers
   if constexpr (DT < MAX_D) {
     if (d == DT && s2 == 1)
       return launch<DT, P, 1, 4, MINB>(a, b, out, nb, h, w, c, d, s2,
-                                       stream);
+                                       origin, stream);
     if (d == DT && s2 == 2)
       return launch<DT, P, 2, 4, MINB>(a, b, out, nb, h, w, c, d, s2,
-                                       stream);
+                                       origin, stream);
   }
-  return launch<DT, P, 0, 4, MINB>(a, b, out, nb, h, w, c, d, s2, stream);
+  return launch<DT, P, 0, 4, MINB>(a, b, out, nb, h, w, c, d, s2, origin,
+                                   stream);
 }
 
 // the tilings of ops/correlation.py (CF_TILINGS, cf_geometry): the D
@@ -242,7 +253,9 @@ bool has_instance(int dmax, int rows, int stages) {
 }  // namespace
 
 // dmax, rows and stages: the wrapper's tiling (cf_geometry), checked
-// against the instances; d = 2 (max_disp / stride2) + 1 <= dmax.
+// against the instances; d = 2 (max_disp / stride2) + 1 <= dmax. On the
+// Pallas kernel's grid: origin max_disp % stride2, which moves only where
+// a tile is staged from (the shared memory is the same).
 extern "C" int dodt_correlation_cf(const void* a, const void* b, void* out,
                                    int nb, int h, int w, int c,
                                    int max_disp, int stride2, int dmax,
@@ -258,10 +271,13 @@ extern "C" int dodt_correlation_cf(const void* a, const void* b, void* out,
   const float* fb = static_cast<const float*>(b);
   float* fo = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int origin = max_disp % stride2;
   if (dmax == 5)
-    return dispatch<5, 8, 2>(fa, fb, fo, nb, h, w, c, d, stride2, stages, st);
+    return dispatch<5, 8, 2>(fa, fb, fo, nb, h, w, c, d, stride2, origin,
+                             stages, st);
   if (dmax == 11)
-    return dispatch<11, 5, 1>(fa, fb, fo, nb, h, w, c, d, stride2, stages,
-                              st);
-  return dispatch<21, 2, 1>(fa, fb, fo, nb, h, w, c, d, stride2, stages, st);
+    return dispatch<11, 5, 1>(fa, fb, fo, nb, h, w, c, d, stride2, origin,
+                              stages, st);
+  return dispatch<21, 2, 1>(fa, fb, fo, nb, h, w, c, d, stride2, origin,
+                            stages, st);
 }

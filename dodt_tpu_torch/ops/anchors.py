@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dodt_tpu_torch.ops.voxel import xla_reciprocal
+
 
 def grid_anchor_xz(area_extents, anchor_stride) -> np.ndarray:
     """Static (N, 2) [x, z] anchor centres in the reference's (z, x)
@@ -67,9 +69,10 @@ def bev_occupancy_counts(integral_2d: torch.Tensor, anchors: torch.Tensor,
     x, z = anchors[:, 0], anchors[:, 2]
     half_x, half_z = anchors[:, 3] / 2.0, anchors[:, 5] / 2.0
 
+    inv_vs = xla_reciprocal(voxel_size)     # the quotient as jitted XLA's
+
     def cell(v, lo, n):
-        return torch.clamp(torch.floor((v - lo) / voxel_size).long(), 0,
-                           n - 1)
+        return torch.clamp(torch.floor((v - lo) * inv_vs).long(), 0, n - 1)
     x1 = cell(x - half_x, ext[0, 0], nx)
     x2 = cell(x + half_x, ext[0, 0], nx) + 1
     z1 = cell(z - half_z, ext[1, 0], nz)

@@ -17,12 +17,11 @@ offsets are (ky - r) * stride_2 - o with o = ``grid_origin`` =
 max_displacement - r * stride_2: the same grid wherever
 max_displacement % stride_2 == 0 (o = 0, every preset), one moved by o
 pixels up and left otherwise. B3 and the model's ``corr_bottleneck``
-take the blur's grid; the bottleneck's twin takes either (``origin``).
-(JAX's ``correlation_pallas_cf`` reads the blur's grid too, so JAX's
-public ``correlation`` moves by o between the TPU and other backends.
-B4, the port's raw volume, keeps the centred grid: it follows JAX's
-public op off the TPU, ``correlation_xla``, and so differs from the
-Pallas kernel it replaces where max_displacement % stride_2 != 0.)
+take the blur's grid; both twins take either (``origin``). JAX's
+``correlation_pallas_cf`` reads the blur's grid too, so JAX's public
+``correlation`` moves by o between the TPU and other backends; the
+port's follows it between the card (B4, the Pallas kernel's grid) and
+the CPU (the twin on ``correlation_xla``'s).
 
 Counterpart of dodt_tpu/ops/correlation.py. ``correlation_cf`` /
 ``correlation`` replace the ``correlation_pallas_cf`` route of the
@@ -264,18 +263,26 @@ def corr_bottleneck(a: torch.Tensor, b: torch.Tensor, weights: torch.Tensor,
 # ---------------------------------------------------------------- B4
 
 def correlation_cf_plain(a: torch.Tensor, b: torch.Tensor,
-                         max_displacement: int, stride_2: int = 1
-                         ) -> torch.Tensor:
+                         max_displacement: int, stride_2: int = 1,
+                         origin: int = 0) -> torch.Tensor:
     """Twin: a, b (N, H, W, C) -> (N, D^2, H, W) in the input dtype, one
-    displacement at a time; differentiable by autograd."""
+    displacement at a time, B read at (ky - r) * stride_2 - origin rows
+    and (kx - r) * stride_2 - origin columns: origin 0 is
+    ``correlation_xla``'s grid, ``grid_origin`` the Pallas kernel's
+    (B4's); differentiable by autograd."""
+    if not 0 <= origin < stride_2:
+        raise ValueError(f"origin {origin}: need 0 <= origin < stride_2 "
+                         f"({stride_2})")
     _, h, w, c = a.shape
     radius, d = disp_grid(max_displacement, stride_2)
-    pad = max_displacement
-    b_pad = F.pad(b, (0, 0, pad, pad, pad, pad))
+    lo = radius * stride_2 + origin
+    hi = radius * stride_2 - origin
+    # b_pad[:, y + ky s2, x + kx s2] is B at the displacement (ky, kx)
+    b_pad = F.pad(b, (0, 0, lo, hi, lo, hi))
     maps = []
     for k in range(d * d):
-        dy = (k // d - radius) * stride_2 + pad
-        dx = (k % d - radius) * stride_2 + pad
+        dy = k // d * stride_2
+        dx = k % d * stride_2
         maps.append((a * b_pad[:, dy:dy + h, dx:dx + w]).sum(-1) / c)
     return torch.stack(maps, dim=1)
 
@@ -284,8 +291,10 @@ def correlation_cf_cuda(a: torch.Tensor, b: torch.Tensor,
                         max_displacement: int, stride_2: int = 1
                         ) -> torch.Tensor:
     """The kernel: a, b (N, H, W, C) f32, C % 4 == 0 -> (N, D^2, H, W)
-    f32, for D <= 21 and any stride_2 whose haloed tiles fit the card's
-    227 KB of shared memory (r stride_2 up to 33 at D = 21)."""
+    f32 on the Pallas kernel's grid (its C entry point works the origin
+    out: the twin at ``grid_origin``), for D <= 21 and any stride_2
+    whose haloed tiles fit the card's 227 KB of shared memory (r
+    stride_2 up to 33 at D = 21)."""
     _cuda.check_cuda_tensor("a", a, torch.float32, 4)
     _cuda.check_cuda_tensor("b", b, torch.float32, 4)
     nb, h, w, c = a.shape
@@ -308,9 +317,11 @@ def correlation_cf_cuda(a: torch.Tensor, b: torch.Tensor,
 
 
 class _CorrelationCF(torch.autograd.Function):
-    """The kernel forward; the backward is the twin's autograd, recomputed
-    from the saved inputs (the JAX custom_vjp's XLA backward,
-    correlation.py:355-362; there is no backward kernel)."""
+    """The kernel forward; the backward is the twin's autograd at origin
+    0, recomputed from the saved inputs: JAX's custom_vjp backward, the
+    VJP of ``correlation_xla_cf`` on the centred grid
+    (correlation.py:355-362), which is the exact gradient wherever
+    max_displacement % stride_2 == 0. There is no backward kernel."""
 
     @staticmethod
     def forward(ctx, a, b, max_displacement, stride_2):
@@ -331,12 +342,12 @@ class _CorrelationCF(torch.autograd.Function):
 def correlation_cf(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
                    stride_2: int = 1) -> torch.Tensor:
     """Channel-first correlation volume: (..., H, W, C) pairs ->
-    (..., D^2, H, W), in the input dtype on the CPU and f32 on the card
-    (bf16 or f16 maps are cast to f32 for the kernel, which sums in f32;
-    the gradient flows back through the cast). On the centred grid, as
-    JAX's ``correlation_xla``: where max_displacement % stride_2 != 0
-    that is not the grid of ``correlation_pallas_cf``, which reads the
-    blur's."""
+    (..., D^2, H, W) in the input dtype. JAX's dispatch, its TPU/other
+    split mapped onto card/CPU: on the card the kernel (bf16 or f16
+    maps are cast to f32 for it, it sums in f32, and the volume is cast
+    back; the gradient flows through both casts) on the Pallas kernel's
+    grid, on the CPU the twin on ``correlation_xla``'s centred grid. The
+    two grids differ where max_displacement % stride_2 != 0."""
     if a.shape != b.shape or a.dim() < 3:
         raise ValueError(f"correlation_cf: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} must be equal (..., H, W, C)")
@@ -348,7 +359,7 @@ def correlation_cf(a: torch.Tensor, b: torch.Tensor, max_displacement: int,
     elif a.device.type == "cuda":
         out = _CorrelationCF.apply(a4.to(torch.float32).contiguous(),
                                    b4.to(torch.float32).contiguous(),
-                                   max_displacement, stride_2)
+                                   max_displacement, stride_2).to(a.dtype)
     else:
         raise ValueError(f"correlation_cf: no kernel for device {a.device}")
     return out.reshape(lead + out.shape[1:])

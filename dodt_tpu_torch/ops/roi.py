@@ -34,7 +34,10 @@ def _unit_grid(s: int, device: torch.device) -> torch.Tensor:
     """k / (s - 1) for k < s in f32, divided on the CPU and kept per
     device. A CUDA tensor divided by a Python number is multiplied by the
     number's rounded reciprocal, one ulp off the quotient for some k
-    (s = 7 among them); XLA, the CPU and kernel B2 compute the quotient."""
+    (s = 7 among them); numpy, the CPU and kernel B2 compute the
+    quotient. Jitted XLA multiplies by the reciprocal and contracts the
+    crop's multiply-adds into FMAs, so its sample coordinates differ by
+    an ulp either way, and the bilinear crop is continuous in them."""
     return (torch.arange(s, dtype=torch.float32) / (s - 1)).to(device)
 
 

@@ -12,7 +12,12 @@ Semantics parity notes (kept from the JAX package):
     y-dominant — true for every KITTI plane);
   * density = min(1, log(N+1)/log(16)) (bev_generator.py:23);
   * map layout: row = flipped z (row 0 = far), col = x (bev_slices
-    113-116 transpose + flip).
+    113-116 transpose + flip);
+  * a quotient by a constant (the voxel size, the slice height, log 16)
+    is a multiply by the constant's f32 reciprocal, as jitted XLA
+    rewrites it: the true quotient puts a point that lies within an ulp
+    of a cell edge in the neighbouring cell. The card computes the same
+    bits, since both sides multiply.
 
 Dropped points (outside the extents or the height band) scatter into one
 extra dump slot past the end of each target, which is sliced off.
@@ -28,6 +33,15 @@ import torch
 class BevMaps(NamedTuple):
     features: torch.Tensor     # (H, W, num_slices + 1) height slices+density
     occupancy: torch.Tensor    # (X, Z) 0/1 cell occupancy (native layout)
+
+
+def xla_reciprocal(c: float) -> float:
+    """1 / c as jitted XLA folds it for a quotient by the constant c: the
+    f32 reciprocal of the f32 constant."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+INV_LOG16 = xla_reciprocal(np.log(np.float32(16.0)))
 
 
 def _scatter(size: int, idx: torch.Tensor, val: torch.Tensor,
@@ -53,6 +67,7 @@ def bev_maps_from_points(points: torch.Tensor, valid: torch.Tensor,
     nz = int(round(float(area_extents[2][1] - area_extents[2][0])
                    / voxel_size))
     div = (height_hi - height_lo) / num_slices
+    inv_vs, inv_div = xla_reciprocal(voxel_size), xla_reciprocal(div)
 
     # extent filter: strict inequalities (reference get_point_filter:453)
     in_area = ((x > float(ae[0, 0])) & (x < float(ae[0, 1])) &
@@ -63,14 +78,14 @@ def bev_maps_from_points(points: torch.Tensor, valid: torch.Tensor,
     dist = plane_dot / torch.linalg.vector_norm(gp[0:3])
     in_band = in_area & (plane_dot >= height_lo) & (plane_dot < height_hi)
 
-    xi = torch.floor((x - float(ae[0, 0])) / voxel_size).to(torch.int32)
-    zi = torch.floor((z - float(ae[2, 0])) / voxel_size).to(torch.int32)
+    xi = torch.floor((x - float(ae[0, 0])) * inv_vs).to(torch.int32)
+    zi = torch.floor((z - float(ae[2, 0])) * inv_vs).to(torch.int32)
     xi = torch.clamp(xi, 0, nx - 1)
     zi = torch.clamp(zi, 0, nz - 1)
     row = nz - 1 - zi
     col = xi
 
-    slice_id = torch.floor((plane_dot - height_lo) / div).to(torch.int32)
+    slice_id = torch.floor((plane_dot - height_lo) * inv_div).to(torch.int32)
     slice_id = torch.clamp(slice_id, 0, num_slices - 1)
 
     # height slices: one scatter-max over (S, H, W)
@@ -78,7 +93,7 @@ def bev_maps_from_points(points: torch.Tensor, valid: torch.Tensor,
     flat_idx = torch.where(in_band, (slice_id * nz + row) * nx + col,
                            num_slices * n_hw)
     slice_lo = height_lo + slice_id.to(torch.float32) * div
-    norm_height = (dist - slice_lo) / div
+    norm_height = (dist - slice_lo) * inv_div
     heights = _scatter(num_slices * n_hw, flat_idx,
                        torch.where(in_band, norm_height, 0.0), "amax")
     height_maps = heights.reshape(num_slices, nz, nx)
@@ -87,8 +102,7 @@ def bev_maps_from_points(points: torch.Tensor, valid: torch.Tensor,
     ones = in_band.to(torch.float32)
     cell_idx = torch.where(in_band, row * nx + col, n_hw)
     counts = _scatter(n_hw, cell_idx, ones, "sum")
-    log16 = torch.log(torch.tensor(16.0, device=counts.device))
-    density = torch.clamp(torch.log(counts + 1.0) / log16, max=1.0)
+    density = torch.clamp(torch.log(counts + 1.0) * INV_LOG16, max=1.0)
     density = torch.where(counts > 0, density, 0.0).reshape(nz, nx)
 
     features = torch.cat([height_maps.permute(1, 2, 0), density[..., None]],

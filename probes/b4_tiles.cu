@@ -1,7 +1,7 @@
 // B4's tilings at the main-path shape, and its dispatch against a naive
-// f64 reference on other shapes (the run-time instances, D below its
-// bucket's, a two-stage ring). Build and run on the card, from the
-// repository root:
+// f64 reference on the Pallas kernel's grid on other shapes (the run-time
+// instances, D below its bucket's, a two-stage ring, origins 0 and 1).
+// Build and run on the card, from the repository root:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //     -o build/b4_tiles probes/b4_tiles.cu && build/b4_tiles
 // Prints each check (max abs error against the reference, 1e-5 of the
@@ -19,10 +19,10 @@ __global__ void naive(const float* a, const float* b, float* out, int nb,
   int y = blockIdx.y;
   int bi = blockIdx.z;
   if (x >= w) return;
-  int r = md / s2, d = 2 * r + 1;
+  int r = md / s2, d = 2 * r + 1, o = md % s2;   // the Pallas kernel's grid
   for (int ky = 0; ky < d; ++ky)
     for (int kx = 0; kx < d; ++kx) {
-      int yy = y + (ky - r) * s2, xx = x + (kx - r) * s2;
+      int yy = y + (ky - r) * s2 - o, xx = x + (kx - r) * s2 - o;
       double dot = 0;
       if (yy >= 0 && yy < h && xx >= 0 && xx < w)
         for (int ch = 0; ch < c; ++ch)
@@ -90,10 +90,10 @@ void timeit(const char* tag, const float* a, const float* b, float* o, int h,
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0); cudaEventCreate(&e1);
   for (int i = 0; i < 3; ++i)
-    launch<DT, P, S2, STAGES, MINB>(a, b, o, 1, h, w, c, d, s2, 0);
+    launch<DT, P, S2, STAGES, MINB>(a, b, o, 1, h, w, c, d, s2, 0, 0);
   cudaEventRecord(e0);
   for (int i = 0; i < 50; ++i)
-    launch<DT, P, S2, STAGES, MINB>(a, b, o, 1, h, w, c, d, s2, 0);
+    launch<DT, P, S2, STAGES, MINB>(a, b, o, 1, h, w, c, d, s2, 0, 0);
   cudaEventRecord(e1); cudaEventSynchronize(e1);
   float ms; cudaEventElapsedTime(&ms, e0, e1);
   auto kernel = correlation_cf_kernel<DT, P, S2, STAGES, MINB>;
@@ -111,7 +111,7 @@ void timeit(const char* tag, const float* a, const float* b, float* o, int h,
 int main() {
   int bad = 0;
   bad += check(1, 350, 400, 32, 5, 1);   // the main path
-  bad += check(2, 64, 96, 32, 5, 2);     // D = 5 at stride 2
+  bad += check(2, 64, 96, 32, 5, 2);     // D = 5 at stride 2, origin 1
   bad += check(2, 61, 77, 32, 10, 2);    // D = 11 at stride 2
   bad += check(1, 45, 67, 16, 10, 1);    // D = 21
   bad += check(3, 40, 72, 8, 2, 1);      // D = 5, N = 3, C = 8
@@ -119,7 +119,8 @@ int main() {
   bad += check(1, 29, 37, 8, 1, 1);      // D = 3 in the D = 5 bucket
   bad += check(1, 30, 41, 16, 7, 3);     // D = 5 at stride 3: run-time
   bad += check(1, 26, 45, 8, 4, 1);      // D = 9 in the D = 11 bucket
-  bad += check(1, 20, 20, 4, 1, 2);      // D = 1, C = 4
+  bad += check(1, 20, 20, 4, 1, 2);      // D = 1, C = 4, origin 1
+  bad += check(2, 47, 61, 32, 3, 2);     // D = 3 at stride 2, origin 1
   bad += check(1, 70, 90, 8, 30, 3);     // D = 21, a two-stage ring
   int h = 350, w = 400, c = 32;
   size_t n = (size_t)h * w * c;

@@ -133,25 +133,31 @@ def test_roi_window_kernel_reads_a_misaligned_f32_map(dev):
     ((3, 40, 72, 8), 5, 1, "float32"),       # N = 3, C = 8
     ((1, 33, 51, 16), 5, 1, "float32"),      # C = 16, odd map
     ((1, 33, 50, 64), 5, 1, "float32"),      # C = 64
-    ((2, 64, 96, 32), 5, 2, "float32"),      # D = 5 at stride 2
+    ((2, 64, 96, 32), 5, 2, "float32"),      # D = 5 at stride 2, origin 1
     ((1, 30, 41, 16), 7, 3, "float32"),      # stride 3: run-time strips
     ((1, 70, 90, 8), 30, 3, "float32"),      # D = 21, a two-stage ring
     ((2, 47, 81, 32), 5, 1, "bfloat16"),     # bf16 inputs
+    ((1, 37, 53, 32), 3, 2, "float32"),      # D = 3 at stride 2, origin 1
 ])
 def test_correlation_kernel_matches_twin_at_every_shape(dev, shape, md, s2,
                                                         dtype):
-    """B4 (one launch) against the twin on the inputs' f32 values: f32
-    sums of C products in another order, 1e-5. bf16 inputs give an f32
-    volume."""
+    """B4 (one launch) against the twin at the Pallas kernel's grid
+    origin on the inputs' f32 values: f32 sums of C products in another
+    order, 1e-5. The volume comes back in the input dtype: bf16 inputs
+    give the f32 kernel's volume cast to bf16."""
     g = torch.Generator().manual_seed(16)
     a, b = (torch.randn(shape, generator=g).to(dev, getattr(torch, dtype))
             for _ in range(2))
     before = tcorr._CF_KERNEL.launches
     got = tcorr.correlation_cf(a, b, md, s2)
     assert tcorr._CF_KERNEL.launches == before + 1
-    want = tcorr.correlation_cf_plain(a.float(), b.float(), md, s2)
-    assert got.dtype == torch.float32
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert got.dtype == a.dtype
+    vol = tcorr.correlation_cf_cuda(a.float().contiguous(),
+                                    b.float().contiguous(), md, s2)
+    assert torch.equal(got, vol.to(a.dtype))
+    want = tcorr.correlation_cf_plain(a.float(), b.float(), md, s2,
+                                      tcorr.grid_origin(md, s2))
+    torch.testing.assert_close(vol, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -179,7 +185,7 @@ def test_correlation_kernel_matches_twin(dev, shape, md, s2):
     before = tcorr._CF_KERNEL.launches
     got = tcorr.correlation_cf(a, b, md, s2)
     assert tcorr._CF_KERNEL.launches == before + 1
-    want = tcorr.correlation_cf_plain(a, b, md, s2)
+    want = tcorr.correlation_cf_plain(a, b, md, s2, tcorr.grid_origin(md, s2))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(tcorr.correlation(a, b, md, s2),
                                want.movedim(1, -1), rtol=1e-5, atol=1e-5)

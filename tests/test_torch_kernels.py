@@ -215,6 +215,33 @@ def test_correlation_twin_matches_jax(shape, md, s2):
     np.testing.assert_allclose(got, oracle, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("md,s2", [(5, 1), (5, 2), (3, 2)])
+def test_correlation_twin_at_the_kernels_origin_matches_pallas(md, s2):
+    """B4's twin at ``grid_origin`` (the grid of B4 on the card) against
+    the interpret-mode ``correlation_pallas_cf`` (per map), and at origin
+    0 against ``correlation_xla_cf`` (the CPU route's grid): f32 sums of
+    C products in another order, 1e-6. Where max_displacement %
+    stride_2 != 0 the two grids differ (by more than 0.1 here)."""
+    rng = np.random.RandomState(13)
+    a = rng.randn(2, 21, 26, 8).astype(np.float32)
+    b = rng.randn(2, 21, 26, 8).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    origin = tcorr.grid_origin(md, s2)
+    assert origin == md % s2
+    got = tcorr.correlation_cf_plain(ta, tb, md, s2, origin).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.stack([np.asarray(jcorr.correlation_pallas_cf(
+            jnp.asarray(x), jnp.asarray(y), md, s2)) for x, y in zip(a, b)])
+    np.testing.assert_allclose(got, pallas, rtol=1e-6, atol=1e-6)
+    centred = tcorr.correlation_cf_plain(ta, tb, md, s2).numpy()
+    xla = np.asarray(jcorr.correlation_cf(jnp.asarray(a), jnp.asarray(b), md,
+                                          s2, use_pallas=False))
+    np.testing.assert_allclose(centred, xla, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(tcorr.correlation_cf(ta, tb, md, s2).numpy(),
+                                  centred)
+    assert (np.abs(got - centred).max() > 0.1) == (origin != 0)
+
+
 @pytest.mark.parametrize("shape,md,s2", [
     ((20, 24, 8), 5, 1),       # the model's displacement range
     ((2, 10, 13, 16), 4, 2),   # batched, stride_2 = 2
