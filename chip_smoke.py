@@ -127,14 +127,24 @@ and its reason on stdout and stderr, and prints no result:
      mask, bev_pixel_from_xz) and the metrics helpers (device_sync,
      StepTimer, profile_trace) on the card;
  20. the full-width BEV rasterization on the card against the CPU, bit
-     for bit, on bench's points and on points on every cell and slice
-     edge, and how many edge coordinates dividing by the voxel size puts
-     in another cell on the card than on the CPU;
+     for bit, on bench's points (both frames, on bench's ground plane
+     and on a tilted one) and on points on every cell and slice edge,
+     and how many edge coordinates dividing by the voxel size puts in
+     another cell on the card than on the CPU. The val forward and the
+     train step rasterize through the one form (ROADMAP C24);
  21. the flagship's full-width monolithic forward (bf16 towers, seeded
      weights, bench's couple) on the card against the CPU: bev_input
      bit-equal, the top proposals matched as sets, the valid final
      counts within a fifth (tests/test_torch_full_width_forward.py's
-     bf16 rule).
+     bf16 rule);
+ 22. the full-width train step (f32 towers, phase 7's weights and
+     couple, one set of draws) through make_train_step on the card and
+     on the CPU, SGD at lr 1 without clipping: bev_input bit-equal, the
+     masks and the RPN mini-batch's selection exact, the losses and
+     every gradient within the bounds measured on the card
+     (STEP22_*); B3 launched once and its backward run in the card's
+     step; prints the step's ms and peak memory
+     (tests/test_torch_full_width_train.py holds the CPU step to JAX's).
 
 Phase 2 also holds B3's and B1's autograd routes against the twins'
 autograd: B3's kernel forward with its backward through the blur form
@@ -186,8 +196,8 @@ forward's, the train step's and the evaluation's counts beside it,
 ``evaluate`` per evaluated couple, and the single-frame forward's, per
 single-frame evaluated sample, the Stack forward's and per evaluated
 stack, each variant's forward, per CLI-evaluated couple, per mesh train
-step and per mesh-evaluated couple (phase 17), each rank's; B4 its
-public ops), error and times;
+step and per mesh-evaluated couple (phase 17), each rank's, and phase
+22's f32 train step; B4 its public ops), error and times;
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -3302,12 +3312,17 @@ def voxel_edge_points(ku):
 
 
 EDGE_PLANE = np.float32([0.0, -1.0, 0.0, 1.65])
+# a ground plane as KITTI's are, off the axes: the plane offset's FMAs
+# (dodt_tpu_torch/ops/voxel.py plane_offset) set the heights and slices
+TILTED_PLANE = np.float32([-0.0077, -0.9999, 0.0116, 1.6512])
 
 
 def rasterization_cuda_vs_cpu(dev):
     """The full-width BEV rasterization on the card against the CPU, bit
-    for bit: bench's points (make_batch, seed 0, both frames) and points
-    on every cell and slice edge (voxel_edge_points). Also counts the
+    for bit: bench's points (make_batch, seed 0, both frames, on bench's
+    plane and on TILTED_PLANE) and points on every cell and slice edge
+    (voxel_edge_points). The val forward and the train step take this
+    one form (ROADMAP C24). Also counts the
     edge coordinates whose cell the division (x - lo) / voxel_size
     gives differently on the card (a CUDA tensor divided by a Python
     number is multiplied by its f32 reciprocal, as jitted XLA) and on
@@ -3323,10 +3338,11 @@ def rasterization_cuda_vs_cpu(dev):
     bg = ku.bev_generator
     batch = make_batch(cfg, np.random.RandomState(0))
     edges = voxel_edge_points(ku)
-    clouds = {f"bench frame {f}": (batch["points"][0, f],
-                                   batch["points_valid"][0, f],
-                                   batch["ground_plane"][0])
-              for f in range(2)}
+    clouds = {f"bench frame {f}{tag}": (batch["points"][0, f],
+                                        batch["points_valid"][0, f], gp)
+              for f in range(2)
+              for tag, gp in (("", batch["ground_plane"][0]),
+                              (" tilted", TILTED_PLANE))}
     clouds["edges"] = (edges, np.ones(len(edges), bool), EDGE_PLANE)
     cells = {}
     for name, (pts, valid, gp) in clouds.items():
@@ -3421,6 +3437,156 @@ def flagship_forward_cuda_vs_cpu(dev):
         check(nc > 0 and abs(ng - nc) <= FLAGSHIP_COUNT_SHARE * nc,
               f"frame {f}: valid final counts card {ng} CPU {nc}")
     return res
+
+
+# ---------------------------------------------------------------- phase 22
+
+# the full-width f32 train step, card against CPU: losses relative, every
+# gradient as a share of its leaf's largest; a bias ahead of a
+# one-channel GroupNorm has an exact gradient of 0 and is held to a share
+# of the model's largest. Measured on the card (NVIDIA H100 80GB HBM3,
+# 700.00 W, TF32 off): losses 3.1e-6 (avod_ang), gradients 1.8e-4
+# (avod_fc.fc2.weight)
+STEP22_LOSS_RTOL = 1e-4
+STEP22_GRAD_SHARE = 2e-3
+STEP22_NOISE_SHARE = 1e-4
+
+
+def train_step_full_width_cuda_vs_cpu(dev, counters):
+    """One make_train_step of cars_dt_tracking at full width with f32
+    towers on the card and on the CPU: phase 7's weights (init_params seed
+    0, rpn_reg's output scaled by 1e-2) and couple (SmokeStream(cfg, 7)'s
+    first), the same draws (a seeded CPU generator, each draw made once
+    and handed to both), train=True with the RPN head's dropout off (as
+    tests/test_torch_full_width_train.py (c) holds the CPU step to JAX's),
+    SGD at lr 1 without clipping, so each update is minus the gradient. The
+    forward's outputs are read through a hook: bev_input bit-equal, the
+    anchor and proposal masks and the RPN mini-batch's selection exact;
+    the losses and every gradient within STEP22_*. On the card the step
+    runs twice: a warm-up, then the timed one with the counters zeroed,
+    in which B3 must launch once and its backward (corr_bottleneck_vjp)
+    run once. Returns the card step's ms, peak MiB, B3's launches and the
+    measured differences."""
+    import copy
+    import torch
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+    from dodt_tpu_torch.ops import correlation
+    from dodt_tpu_torch.runtime.trainer import (create_train_state,
+                                                make_train_step)
+
+    cfg = cars_dt_tracking()
+    cfg.dataset.max_points = 65536
+    cfg.model.tower_dtype = "float32"
+    cfg.model.rpn.keep_prob = 1.0
+    opt = cfg.train.optimizer
+    opt.name, opt.initial_lr, opt.grad_clip_norm = "sgd", 1.0, 1e30
+    cpu_model = DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS)
+    init_params(cpu_model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu_model.rpn_reg.out.weight.mul_(1e-2)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    host = SmokeStream(cfg, 7).next_batch(1)
+    cache = {}
+    g = torch.Generator().manual_seed(1)
+
+    def rand(name, shape):                       # the same draws for both
+        if (name, shape) not in cache:
+            cache[name, shape] = torch.rand(shape, generator=g)
+        return cache[name, shape]
+
+    vjp = correlation.corr_bottleneck_vjp
+    vjp_calls = []
+
+    def counted_vjp(*args, **kw):
+        vjp_calls.append(1)
+        return vjp(*args, **kw)
+
+    def step_on(model, d, card):
+        outs = []
+        hook = model.register_forward_hook(
+            lambda m, a, kw, out: outs.append(out), with_kwargs=True)
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg, model)
+        batch = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
+        draws = (lambda n, sh: rand(n, sh).to(d))
+        ms = None
+        for run in range(2 if card else 1):
+            outs.clear()
+            if card and run == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                for c in counters:
+                    c.launches = 0
+                vjp_calls.clear()
+                t0 = time.perf_counter()
+            new, losses = step(state, batch, draws)
+            if card and run == 1:
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        hook.remove()
+        out = outs[-1]
+        keep = {k: out[k].detach().cpu() for k in
+                ("bev_input", "anchor_valid", "top_valid")}
+        keep.update({f"rpn_mb.{k}": out["rpn_mb"][k].cpu()
+                     for k in ("sel", "pos")})
+        grads = {k: (state.params[k] - new.params[k]).cpu()
+                 for k in state.params}
+        return ({k: float(v) for k, v in losses.items()}, grads, keep, ms)
+
+    correlation.corr_bottleneck_vjp = counted_vjp
+    try:
+        lg, gg, og, ms = step_on(gpu_model, dev, True)
+    finally:
+        correlation.corr_bottleneck_vjp = vjp
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    launches = {c.symbol: c.launches for c in counters}
+    b3 = correlation._KERNEL.launches
+    others = [c.launches for c in counters if c is not correlation._KERNEL]
+    t0 = time.perf_counter()
+    lc, gc, oc, _ = step_on(cpu_model, "cpu", False)
+    cpu_s = time.perf_counter() - t0
+    log(f"phase 22: full-width f32 train step on the card {ms:.2f} ms, peak "
+        f"device memory {peak:.0f} MiB, B3 launches {b3}, its backward "
+        f"{len(vjp_calls)}; on the CPU {cpu_s:.1f} s")
+    check(b3 == 1 and len(vjp_calls) == 1,
+          f"B3 launched {b3} times and its backward ran {len(vjp_calls)} "
+          f"times in the card's train step")
+    check(others == [0, 0], f"an eval-only kernel ran in training: {others}")
+    for k in oc:
+        diff = int((og[k] != oc[k]).sum())
+        check(diff == 0, f"phase 22 {k} card vs CPU: {diff} values differ")
+    log("phase 22 losses card " + ", ".join(
+        f"{k} {lg[k]:.6g}" for k in LOSS_KEYS) + " | cpu " + ", ".join(
+        f"{k} {lc[k]:.6g}" for k in LOSS_KEYS))
+    rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30)
+           for k in LOSS_KEYS}
+    top = max(float(v.abs().max()) for v in gc.values())
+    shares = {}
+    for k, want in gc.items():
+        e, scale = rel_err(gg[k], want)
+        shares[k] = (e / top if scale < STEP22_NOISE_SHARE * top
+                     else e / scale)
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:4]
+    log(f"phase 22: loss relative differences {rel}; largest gradient "
+        f"differences (share of the leaf's largest, or of the model's for "
+        f"a zero-gradient leaf) {worst}")
+    for k in LOSS_KEYS:
+        check(lc[k] > 0, f"phase 22: loss {k} is zero")
+        check(rel[k] <= STEP22_LOSS_RTOL,
+              f"phase 22 loss {k}: card {lg[k]} CPU {lc[k]}")
+    for k, want in gc.items():
+        e, scale = rel_err(gg[k], want)
+        if scale < STEP22_NOISE_SHARE * top:
+            check(e <= STEP22_NOISE_SHARE * top,
+                  f"phase 22 gradient {k}: {e} vs the model's {top}")
+        else:
+            check(e <= STEP22_GRAD_SHARE * scale,
+                  f"phase 22 gradient {k}: {e} vs {scale}")
+    return {"step_ms": ms, "peak_mib": peak, "b3_launches": b3,
+            "launches": launches, "cpu_step_s": cpu_s, "loss_rel": rel,
+            "worst_grads": worst}
 
 
 # ---------------------------------------------------------------- phase 19
@@ -3917,6 +4083,8 @@ def main():
         flagship = flagship_forward_cuda_vs_cpu(dev)
         log("phase 21: the flagship's full-width forward agrees with the "
             "CPU")
+        step22 = train_step_full_width_cuda_vs_cpu(dev, counters)
+        log("phase 22: the full-width train step agrees with the CPU")
     except PhaseError as exc:
         return fail(str(exc))
     except Exception as exc:                 # a build or launch error
@@ -4023,7 +4191,8 @@ def main():
               f"{mesh_b['want']['evaluate']['wall_s']:.4f}); peak device "
               f"memory {rank['peak_mib']:.0f} MiB on {card}")
     print(f"rasterization card vs CPU: bit-equal on bench's points (2 "
-          f"frames, 65536 points each) and {raster['edge_points']} points "
+          f"frames, 65536 points each, on bench's and on a tilted ground "
+          f"plane) and {raster['edge_points']} points "
           f"on cell and slice edges; dividing by the voxel size puts "
           f"{raster['moved_by_division']} edge coordinates in another cell "
           f"on the card than on the CPU")
@@ -4035,6 +4204,13 @@ def main():
               f"{fr['final_share_1e-2']:.4f}, within 0.5 "
               f"{fr['final_share_0.5']:.4f}; CPU forward "
               f"{flagship['cpu_forward_s']:.2f} s on {card}")
+    print(f"full-width f32 train step card vs CPU (SGD at lr 1): bev_input "
+          f"bit-equal, masks and RPN mini-batch exact, loss relative "
+          f"differences {step22['loss_rel']}, largest gradient differences "
+          f"{step22['worst_grads']}; card step {step22['step_ms']:.4f} ms, "
+          f"peak device memory {step22['peak_mib']:.0f} MiB, B3 launches "
+          f"{step22['b3_launches']}; CPU step {step22['cpu_step_s']:.2f} s "
+          f"on {card}")
     for line in kernel_lines(kern, card):
         print(line)
     # launches in each path's run, and per keyframe (pushes, the first of
@@ -4074,7 +4250,8 @@ def main():
         # 17(b)'s ranks forward 2 + n couples between them
         "per_mesh_evaluated_couple_2x1": sum(
             r["evaluate"]["launches"][k.symbol] for r in mesh_b["ranks"])
-        / (mesh_b["couples"] + 2)}
+        / (mesh_b["couples"] + 2),
+        "f32_train_step_vs_cpu": step22["launches"][k.symbol]}
         for k in counters}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
         "correlation_op": op_launches,

@@ -17,7 +17,13 @@ Semantics parity notes (kept from the JAX package):
     is a multiply by the constant's f32 reciprocal, as jitted XLA
     rewrites it: the true quotient puts a point that lies within an ulp
     of a cell edge in the neighbouring cell. The card computes the same
-    bits, since both sides multiply.
+    bits, since both sides multiply. Jitted XLA also contracts the plane
+    offset's multiply-adds into FMAs (``plane_offset``), and its val
+    forward and its train step take these forms alike (ROADMAP C24);
+  * the density of a cell of n points takes one of 16 values (n >= 15
+    saturates), read from a table: ``torch.log`` on the CPU is not always
+    correctly rounded on its first call in a process (ROADMAP C24), and
+    the table gives the card the CPU's bits.
 
 Dropped points (outside the extents or the height band) scatter into one
 extra dump slot past the end of each target, which is sliced off.
@@ -42,6 +48,24 @@ def xla_reciprocal(c: float) -> float:
 
 
 INV_LOG16 = xla_reciprocal(np.log(np.float32(16.0)))
+# min(1, log(n + 1) / log 16) for n = 0..15 points in a cell, as jitted
+# XLA computes it (f32 log times INV_LOG16); 15 or more points give 1
+DENSITY = np.minimum(np.log(np.arange(1, 17, dtype=np.float32))
+                     * np.float32(INV_LOG16), np.float32(1.0))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a * b + c rounded once, as an FMA: the f32 product is exact in
+    f64, and the f64 sum rounds to the FMA's f32 but for sums within an
+    f64 ulp of an f32 rounding midpoint."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def plane_offset(points: torch.Tensor, gp: torch.Tensor) -> torch.Tensor:
+    """a*x + b*y + c*z + d of points (P, 3) on plane (4,), as jitted XLA
+    contracts it: fma(c, z, fma(a, x, b * y)) + d."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    return _fma(gp[2], z, _fma(gp[0], x, gp[1] * y)) + gp[3]
 
 
 def _scatter(size: int, idx: torch.Tensor, val: torch.Tensor,
@@ -74,7 +98,7 @@ def bev_maps_from_points(points: torch.Tensor, valid: torch.Tensor,
                (y > float(ae[1, 0])) & (y < float(ae[1, 1])) &
                (z > float(ae[2, 0])) & (z < float(ae[2, 1])) & valid)
 
-    plane_dot = gp[0] * x + gp[1] * y + gp[2] * z + gp[3]
+    plane_dot = plane_offset(points, gp)
     dist = plane_dot / torch.linalg.vector_norm(gp[0:3])
     in_band = in_area & (plane_dot >= height_lo) & (plane_dot < height_hi)
 
@@ -102,8 +126,8 @@ def bev_maps_from_points(points: torch.Tensor, valid: torch.Tensor,
     ones = in_band.to(torch.float32)
     cell_idx = torch.where(in_band, row * nx + col, n_hw)
     counts = _scatter(n_hw, cell_idx, ones, "sum")
-    density = torch.clamp(torch.log(counts + 1.0) * INV_LOG16, max=1.0)
-    density = torch.where(counts > 0, density, 0.0).reshape(nz, nx)
+    table = torch.as_tensor(DENSITY, device=counts.device)
+    density = table[torch.clamp(counts, max=15.0).long()].reshape(nz, nx)
 
     features = torch.cat([height_maps.permute(1, 2, 0), density[..., None]],
                          dim=-1)

@@ -1,5 +1,7 @@
 """The port's BEV rasterization and anchor-occupancy quotients against
-jitted JAX on points placed exactly on cell and slice edges.
+jitted JAX on points placed exactly on cell and slice edges, in a jitted
+forward and in a jitted ``value_and_grad`` program as the train step
+builds it (the same forms, ROADMAP C24).
 
 Jitted XLA divides by a constant as a multiply by the constant's f32
 reciprocal: ``(x + 40) / 0.1`` is ``(x + 40) * 10``, which differs from
@@ -8,7 +10,9 @@ neighbouring cell (ROADMAP C22). The port multiplies by the same
 reciprocal, so its maps are bit-equal to the JAX model's. Every point
 below lies on an edge (the f32 nearest to it): each 0.1 m x edge of a
 strip at fixed z, each z edge of a strip at fixed x, each at every
-height-slice edge of the ground plane and between them.
+height-slice edge of the ground plane and between them. On a tilted
+ground plane XLA contracts the plane offset's multiply-adds into FMAs,
+as the port's ``plane_offset`` does.
 """
 import functools
 
@@ -27,6 +31,7 @@ from dodt_tpu_torch.ops import anchors as tanchors
 from dodt_tpu_torch.ops import voxel as tvoxel
 
 KU = cfg_mod.cars_dt_tracking().dataset.kitti_utils
+TILTED = np.float32([-0.0077, -0.9999, 0.0116, 1.6512])
 BG = KU.bev_generator
 AREA = np.asarray(KU.area_extents, np.float32)
 VS = KU.voxel_size
@@ -108,3 +113,82 @@ def test_anchor_occupancy_on_cell_edges_matches_jitted_jax():
         tanchors.integral_image_2d(torch.from_numpy(occ)),
         torch.from_numpy(anchors), ext, VS)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train_rasterize():
+    """A jitted value_and_grad program that rasterizes as the model's
+    train step does: vmapped over (batch, frame), the points passed in,
+    the maps feeding a loss differentiated with respect to a weight."""
+    rasterize = functools.partial(
+        jvoxel.bev_maps_from_points, area_extents=AREA, voxel_size=VS,
+        height_lo=BG.height_lo, height_hi=BG.height_hi,
+        num_slices=BG.num_slices)
+
+    def loss(w, pts, valid, gp):
+        maps = jax.vmap(jax.vmap(rasterize))(pts, valid, gp)
+        return jnp.sum(maps.features * w), maps
+    return jax.jit(jax.value_and_grad(loss, has_aux=True))
+
+
+@pytest.mark.parametrize("plane", ["flat", "tilted"])
+@pytest.mark.parametrize("shift", [0.0, 1e-3])
+def test_bev_maps_on_edges_match_the_jax_train_program(shift, plane):
+    """Features and occupancy bit-equal to the train-step form of JAX's
+    rasterization on the edges and 1 mm past them, on the edges' plane
+    and on a tilted one."""
+    pts = edge_points() + np.float32(shift)
+    valid = np.ones(len(pts), bool)
+    gp = PLANE if plane == "flat" else TILTED
+    w = np.ones((1, 1, 700, 800, BG.num_slices + 1), np.float32)
+    (_, maps), _ = _jax_train_rasterize()(w, pts[None, None],
+                                           valid[None, None], gp[None, None])
+    got = tvoxel.bev_maps_from_points(
+        torch.from_numpy(pts), torch.from_numpy(valid), torch.from_numpy(gp),
+        KU.area_extents, VS, BG.height_lo, BG.height_hi, BG.num_slices)
+    assert np.asarray(maps.occupancy).sum() > 1000
+    np.testing.assert_array_equal(got.occupancy.numpy(),
+                                  np.asarray(maps.occupancy)[0, 0])
+    np.testing.assert_array_equal(got.features.numpy(),
+                                  np.asarray(maps.features)[0, 0])
+
+
+def test_bev_maps_on_a_tilted_plane_match_jitted_jax():
+    """bench-like random points over a tilted plane: the heights and
+    slices of the FMA-contracted plane offset, bit for bit."""
+    rs = np.random.RandomState(4)
+    n = 65536
+    pts = np.stack([rs.uniform(-40, 40, n), rs.uniform(-2.0, 2.5, n),
+                    rs.uniform(0, 70, n)], -1).astype(np.float32)
+    valid = rs.rand(n) < 0.95
+    want = _jax_rasterize()(jnp.asarray(pts), jnp.asarray(valid),
+                            jnp.asarray(TILTED))
+    got = tvoxel.bev_maps_from_points(
+        torch.from_numpy(pts), torch.from_numpy(valid),
+        torch.from_numpy(TILTED), KU.area_extents, VS, BG.height_lo,
+        BG.height_hi, BG.num_slices)
+    np.testing.assert_array_equal(got.occupancy.numpy(),
+                                  np.asarray(want.occupancy))
+    np.testing.assert_array_equal(got.features.numpy(),
+                                  np.asarray(want.features))
+
+
+def test_density_table_matches_jitted_jax():
+    """Cells of 1 to 40 points: the density table against jitted JAX's
+    min(1, log(n + 1) / log 16)."""
+    counts = np.arange(1, 41)
+    cells = np.repeat(np.arange(40), counts)
+    pts = np.stack([np.float32(-39.95 + 0.2 * cells),
+                    np.full(len(cells), 1.0, np.float32),
+                    np.full(len(cells), 10.05, np.float32)], -1)
+    valid = np.ones(len(pts), bool)
+    want = np.asarray(_jax_rasterize()(jnp.asarray(pts), jnp.asarray(valid),
+                                       jnp.asarray(PLANE)).features)[..., -1]
+    got = tvoxel.bev_maps_from_points(
+        torch.from_numpy(pts), torch.from_numpy(valid),
+        torch.from_numpy(PLANE), KU.area_extents, VS, BG.height_lo,
+        BG.height_hi, BG.num_slices).features.numpy()[..., -1]
+    assert sorted(np.unique(want[want > 0]))[:3] == sorted(
+        tvoxel.DENSITY[1:4])
+    assert (want == 1.0).sum() == 26           # 15 or more points
+    np.testing.assert_array_equal(got, want)
