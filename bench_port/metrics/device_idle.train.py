@@ -1,0 +1,7 @@
+"""device_idle.train: the share of the traced stretch of train steps in
+which no kernel, memcpy or memset ran on the card."""
+from harness.roofline import idle_share
+
+
+def read(r):
+    return idle_share(r)

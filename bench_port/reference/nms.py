@@ -1,0 +1,118 @@
+"""Fixed-capacity NMS over axis-aligned BEV boxes (PyTorch port of
+dodt_tpu/ops/nms.py). Three modes, picked by the config's ``nms_mode``
+through ``nms_bev_mode``:
+
+* ``nms_bev_exact`` ("exact", the default): keep[i] holds iff no KEPT
+  strictly-higher-scored box overlaps i above the threshold. That
+  recursion is well-founded over the strict score order, so iterating
+  the parallel suppression pass until it stops changing yields exactly
+  greedy NMS's keep set. The JAX ``while_loop`` is a Python loop here,
+  with one host sync per pass (typically 2-5).
+* ``nms_bev`` ("greedy"): the sequential oracle, ``max_out`` steps of
+  argmax and suppress. The steps stay on the device (no host sync), so
+  its cost is ``max_out`` rounds of small launches.
+* ``nms_bev_fast`` ("fast"): one parallel pass; a box is suppressed if
+  ANY strictly higher-scored box overlaps it, even a suppressed one, so
+  it keeps a subset of greedy's picks.
+
+The output is a static (max_out,) index vector plus a validity mask.
+All functions take batched leading axes; score ties go to the lower
+index, as ``jax.lax.top_k`` and ``jnp.argmax`` break them.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .iou import aligned_iou_matrix
+
+NEG_INF = -1e9
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis; equal values keep index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+            max_out: int, iou_thresh: float):
+    """Greedy NMS: ``max_out`` rounds of picking the best live box and
+    suppressing it and every box over the threshold with it.
+
+    boxes (..., N, 4) [x1, y1, x2, y2]; scores, valid (..., N).
+    Returns (indices (..., max_out) int64, out_valid (..., max_out)).
+    """
+    n = boxes.shape[-2]
+    iou = aligned_iou_matrix(boxes, boxes)                    # (..., N, N)
+    live = torch.where(valid, scores, NEG_INF)
+    idx = torch.arange(n, device=boxes.device)
+    out_idx, out_ok = [], []
+    for _ in range(max_out):
+        best = live.argmax(dim=-1, keepdim=True)              # (..., 1)
+        ok = live.gather(-1, best) > NEG_INF / 2
+        row = torch.take_along_dim(iou, best[..., None], dim=-2)[..., 0, :]
+        suppress = (row > iou_thresh) | (idx == best)
+        live = torch.where(ok & suppress, NEG_INF, live)
+        out_idx.append(best)
+        out_ok.append(ok)
+    return torch.cat(out_idx, dim=-1), torch.cat(out_ok, dim=-1)
+
+
+def _dominance(boxes, scores, valid, iou_thresh):
+    """(masked scores, dom): dom[..., i, j] says valid box j outscores i
+    ((s_j, -j) > (s_i, -i)) and overlaps it above the threshold."""
+    n = boxes.shape[-2]
+    iou = aligned_iou_matrix(boxes, boxes)                    # (..., N, N)
+    s = torch.where(valid, scores, NEG_INF)
+    idx = torch.arange(n, device=boxes.device)
+    si, sj = s[..., :, None], s[..., None, :]
+    dom = (si < sj) | ((si == sj) & (idx[:, None] > idx[None, :]))
+    return s, dom & (iou > iou_thresh) & valid[..., None, :]
+
+
+def _top_kept(s, valid, supp, max_out):
+    top_scores, out_idx = top_k(torch.where(valid & ~supp, s, NEG_INF),
+                                max_out)
+    return out_idx, top_scores > NEG_INF / 2
+
+
+def nms_bev_fast(boxes: torch.Tensor, scores: torch.Tensor,
+                 valid: torch.Tensor, max_out: int, iou_thresh: float):
+    """Fast NMS: suppress i if any higher-scored valid j overlaps it.
+    Same interface as ``nms_bev``."""
+    s, dom = _dominance(boxes, scores, valid, iou_thresh)
+    return _top_kept(s, valid, dom.any(dim=-1), max_out)
+
+
+def nms_bev_exact(boxes: torch.Tensor, scores: torch.Tensor,
+                  valid: torch.Tensor, max_out: int, iou_thresh: float):
+    """Exact greedy NMS via fixpoint iteration of the fast pass. Same
+    interface as ``nms_bev``."""
+    s, dom = _dominance(boxes, scores, valid, iou_thresh)
+    supp = dom.any(dim=-1)
+    for _ in range(boxes.shape[-2]):
+        new = (dom & ~supp[..., None, :]).any(dim=-1)
+        if torch.equal(new, supp):
+            break
+        supp = new
+    return _top_kept(s, valid, supp, max_out)
+
+
+def nms_bev_mode(mode: str):
+    """The NMS function of a config's ``nms_mode``."""
+    if mode == "fast":
+        return nms_bev_fast
+    if mode == "greedy":
+        return nms_bev
+    if mode == "exact":
+        return nms_bev_exact
+    raise ValueError(
+        f"nms_mode must be 'exact', 'greedy' or 'fast', got {mode!r}")
+
+
+def top_k_prefilter(scores: torch.Tensor, valid: torch.Tensor, k: int):
+    """Top-k valid candidates, bounding the NMS IoU matrix."""
+    top_scores, top_idx = top_k(torch.where(valid, scores, NEG_INF), k)
+    return top_idx, top_scores > NEG_INF / 2
