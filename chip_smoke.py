@@ -125,7 +125,7 @@ and its reason on stdout and stderr, and prints no result:
  18. the last ported ops on the card against the CPU (rotated and 3D IoU,
      the 3D integral image and its query, point projection, the area
      mask, bev_pixel_from_xz) and the metrics helpers (device_sync,
-     StepTimer, profile_trace) on the card;
+     profile_trace) on the card;
  20. the full-width BEV rasterization on the card against the CPU, bit
      for bit, on bench's points (both frames, on bench's ground plane
      and on a tilted one) and on points on every cell and slice edge,
@@ -3185,9 +3185,8 @@ def rest_ops_cuda_vs_cpu(dev):
     45-degree square pair), the 3D integral image (10 x 8 x 12) and its
     box query, point projection, the area mask, the metric-to-BEV-pixel
     map; and the metrics helpers on the card: device_sync waits for
-    queued work, profile_trace records device kernels, StepTimer's device
-    interval ends after the work. (The BEV-border offsets are host numpy
-    code, no device op.)"""
+    queued work, profile_trace records device kernels. (The BEV-border
+    offsets are host numpy code, no device op.)"""
     import tempfile
     import torch
     from dodt_tpu_torch.ops import anchors, iou, projection, voxel, warp
@@ -3264,10 +3263,6 @@ def rest_ops_cuda_vs_cpu(dev):
     torch.cuda._sleep(SLEEP_CYCLES * 20)
     metrics.device_sync({"x": [x]})
     waited = time.perf_counter() - t0
-    timer = metrics.StepTimer()
-    timer.device_start()
-    torch.cuda._sleep(SLEEP_CYCLES * 20)
-    timer.device_stop(x)
     with tempfile.TemporaryDirectory() as d:
         with metrics.profile_trace(d):
             (torch.ones(512, 512, device=dev) @ torch.ones(
@@ -3277,11 +3272,9 @@ def rest_ops_cuda_vs_cpu(dev):
     kernels = sum(1 for e in trace.get("traceEvents", [])
                   if e.get("cat") == "kernel")
     log(f"phase 18: card vs CPU max abs errors {worst}; device_sync waited "
-        f"{waited * 1e3:.1f} ms for the queued sleep, StepTimer device "
-        f"interval {timer.device_times[0] * 1e3:.1f} ms, profile_trace "
+        f"{waited * 1e3:.1f} ms for the queued sleep, profile_trace "
         f"recorded {kernels} device kernels")
-    check(waited >= 0.05 and timer.device_times[0] >= 0.05,
-          "device_sync returned before the queued work ended")
+    check(waited >= 0.05, "device_sync returned before the queued work ended")
     check(kernels > 0, "profile_trace recorded no device kernel")
     return worst
 

@@ -60,6 +60,7 @@ from dodt_tpu_torch.ops.roi_window import (crop_and_resize_window,
                                            window_applies)
 from dodt_tpu_torch.ops.voxel import bev_maps_from_points
 from dodt_tpu_torch.parallel.mesh import column_linear
+from dodt_tpu_torch.utils.metrics import span
 
 Rand = Callable[[str, Tuple[int, ...]], torch.Tensor]
 
@@ -541,30 +542,37 @@ class DtAvodNet(nn.Module):
         mask, both towers over all rows at once, then the RPN (``_rpn``).
         Returns bev_input, anchors (M, N, 6), anchor_valid (M, N), the f32
         tower features and ``_rpn``'s outputs. The conv-chain kernel runs
-        on eval paths only."""
+        on eval paths only. Spans ``dodt/rasterize``, ``dodt/towers``
+        (outside any checkpoint, so remat does not replay it) and
+        ``dodt/rpn``."""
         ku = self.cfg.dataset.kitti_utils
         bg = ku.bev_generator
-        maps = [bev_maps_from_points(p, v, gp, ku.area_extents,
-                                     ku.voxel_size, bg.height_lo,
-                                     bg.height_hi, bg.num_slices)
-                for p, v, gp in zip(points, points_valid, gps)]
-        sizes = np.asarray(self.cluster_sizes, np.float32)
-        anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
-            ku.area_extents, sizes, ku.anchor_strides, gp)) for gp in gps])
-        anchor_valid = torch.stack([
-            anchor_valid_mask(self.cfg, self.lattice, mp.occupancy, anc)
-            for mp, anc in zip(maps, anchors)])
-        bev_input = torch.stack([mp.features for mp in maps])
+        with span("dodt/rasterize"):
+            maps = [bev_maps_from_points(p, v, gp, ku.area_extents,
+                                         ku.voxel_size, bg.height_lo,
+                                         bg.height_hi, bg.num_slices)
+                    for p, v, gp in zip(points, points_valid, gps)]
+            sizes = np.asarray(self.cluster_sizes, np.float32)
+            anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
+                ku.area_extents, sizes, ku.anchor_strides, gp))
+                for gp in gps])
+            anchor_valid = torch.stack([
+                anchor_valid_mask(self.cfg, self.lattice, mp.occupancy, anc)
+                for mp, anc in zip(maps, anchors)])
+            bev_input = torch.stack([mp.features for mp in maps])
         fused = not ctx.train_mode
         remat = self.cfg.model.remat_towers
-        bev_feats = tower_forward(remat, self.bev_vgg_pyr, bev_input, fused)
-        img_feats = tower_forward(remat, self.img_vgg_pyr,
-                                  preprocess_image(images), fused)
+        with span("dodt/towers"):
+            bev_feats = tower_forward(remat, self.bev_vgg_pyr, bev_input,
+                                      fused)
+            img_feats = tower_forward(remat, self.img_vgg_pyr,
+                                      preprocess_image(images), fused)
+        with span("dodt/rpn"):
+            rpn = self._rpn(bev_feats, img_feats, anchors, anchor_valid, p2,
+                            img_shapes, ctx)
         return {"bev_input": bev_input, "anchors": anchors,
                 "anchor_valid": anchor_valid, "bev_feats": bev_feats,
-                "img_feats": img_feats,
-                **self._rpn(bev_feats, img_feats, anchors, anchor_valid, p2,
-                            img_shapes, ctx)}
+                "img_feats": img_feats, **rpn}
 
     def _rpn_mini_batch(self, anchors, anchor_valid, mb):
         """The RPN mini-batch sampled inside the forward (IoU-based,
@@ -766,12 +774,14 @@ class DtAvodNet(nn.Module):
             "final_scores": _take(final_scores_all, f_idx, 2),
         }
         if self.correlates:
-            corr_bottle = self.bev_corr_bottleneck(bev_bf[:, 0],
-                                                   bev_bf[:, 1])
-            corr_rois = torch.stack([crop_and_resize(cm, bx, s) for cm, bx
-                                     in zip(corr_bottle, ss_bev_yx[:, 0])])
-            corr_offsets = self.corr_fc(corr_rois.reshape(b * k, -1),
-                                        ctx.rand).reshape(b, k, 3)
+            with span("dodt/correlation"):
+                corr_bottle = self.bev_corr_bottleneck(bev_bf[:, 0],
+                                                       bev_bf[:, 1])
+                corr_rois = torch.stack([
+                    crop_and_resize(cm, bx, s)
+                    for cm, bx in zip(corr_bottle, ss_bev_yx[:, 0])])
+                corr_offsets = self.corr_fc(corr_rois.reshape(b * k, -1),
+                                            ctx.rand).reshape(b, k, 3)
             out["corr_pred"] = corr_offsets
             out["final_corr_offsets"] = _take(corr_offsets, f_idx[:, 0], 1)
         return out
@@ -801,10 +811,11 @@ class DtAvodNet(nn.Module):
         (``rpn_mb``). ``train=True`` turns on dropout and path drop.
         Other modes run under ``torch.no_grad()``. ``rand`` gives the
         draws (module docstring); it is needed when anything is drawn.
+        Under a profiler the call is the span ``dodt/forward``.
         """
         grad = contextlib.nullcontext() if mode == "train" \
             else torch.no_grad()
-        with grad:
+        with span("dodt/forward"), grad:
             return self._forward(batch, mode, train, rand)
 
     def _forward(self, batch, mode, train, rand):
@@ -856,10 +867,11 @@ class DtAvodNet(nn.Module):
         out["anchors"] = out["anchors"][:, 0]
         out["img_mask"] = img_mask
         out["bev_mask"] = bev_mask
-        out.update(self._second_stage(
-            out.pop("bev_feats"), out.pop("img_feats"), out["top_anchors"],
-            out["top_valid"], gps, p2, img_shapes,
-            m.expand_proposals_xz, ctx))
+        with span("dodt/second_stage"):
+            out.update(self._second_stage(
+                out.pop("bev_feats"), out.pop("img_feats"),
+                out["top_anchors"], out["top_valid"], gps, p2, img_shapes,
+                m.expand_proposals_xz, ctx))
         return out
 
     @torch.no_grad()
@@ -894,10 +906,11 @@ class DtAvodNet(nn.Module):
         def pair(key):
             return torch.stack([state_a[key], state_b[key]], dim=1)
 
-        out = self._second_stage(
-            pair("bev_feats"), pair("img_feats"), pair("top_anchors"),
-            pair("top_valid"), state_a["ground_plane"], state_a["p2"],
-            state_a["orig_image_shape"].to(torch.float32), 0.0)
+        with span("dodt/second_stage"):
+            out = self._second_stage(
+                pair("bev_feats"), pair("img_feats"), pair("top_anchors"),
+                pair("top_valid"), state_a["ground_plane"], state_a["p2"],
+                state_a["orig_image_shape"].to(torch.float32), 0.0)
         return {k: out[k] for k in FINAL_KEYS}
 
 

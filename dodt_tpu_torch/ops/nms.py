@@ -15,6 +15,9 @@ through ``nms_bev_mode``:
   ANY strictly higher-scored box overlaps it, even a suppressed one, so
   it keeps a subset of greedy's picks.
 
+Under a profiler each call is the span ``dodt/nms``, and each pass of
+the exact mode, with its host sync, a ``dodt/nms_pass`` inside it.
+
 The output is a static (max_out,) index vector plus a validity mask.
 All functions take batched leading axes; score ties go to the lower
 index, as ``jax.lax.top_k`` and ``jnp.argmax`` break them.
@@ -26,6 +29,7 @@ from typing import Tuple
 import torch
 
 from dodt_tpu_torch.ops.iou import aligned_iou_matrix
+from dodt_tpu_torch.utils.metrics import span
 
 NEG_INF = -1e9
 
@@ -44,20 +48,22 @@ def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     boxes (..., N, 4) [x1, y1, x2, y2]; scores, valid (..., N).
     Returns (indices (..., max_out) int64, out_valid (..., max_out)).
     """
-    n = boxes.shape[-2]
-    iou = aligned_iou_matrix(boxes, boxes)                    # (..., N, N)
-    live = torch.where(valid, scores, NEG_INF)
-    idx = torch.arange(n, device=boxes.device)
-    out_idx, out_ok = [], []
-    for _ in range(max_out):
-        best = live.argmax(dim=-1, keepdim=True)              # (..., 1)
-        ok = live.gather(-1, best) > NEG_INF / 2
-        row = torch.take_along_dim(iou, best[..., None], dim=-2)[..., 0, :]
-        suppress = (row > iou_thresh) | (idx == best)
-        live = torch.where(ok & suppress, NEG_INF, live)
-        out_idx.append(best)
-        out_ok.append(ok)
-    return torch.cat(out_idx, dim=-1), torch.cat(out_ok, dim=-1)
+    with span("dodt/nms"):
+        n = boxes.shape[-2]
+        iou = aligned_iou_matrix(boxes, boxes)                # (..., N, N)
+        live = torch.where(valid, scores, NEG_INF)
+        idx = torch.arange(n, device=boxes.device)
+        out_idx, out_ok = [], []
+        for _ in range(max_out):
+            best = live.argmax(dim=-1, keepdim=True)          # (..., 1)
+            ok = live.gather(-1, best) > NEG_INF / 2
+            row = torch.take_along_dim(iou, best[..., None],
+                                       dim=-2)[..., 0, :]
+            suppress = (row > iou_thresh) | (idx == best)
+            live = torch.where(ok & suppress, NEG_INF, live)
+            out_idx.append(best)
+            out_ok.append(ok)
+        return torch.cat(out_idx, dim=-1), torch.cat(out_ok, dim=-1)
 
 
 def _dominance(boxes, scores, valid, iou_thresh):
@@ -82,22 +88,25 @@ def nms_bev_fast(boxes: torch.Tensor, scores: torch.Tensor,
                  valid: torch.Tensor, max_out: int, iou_thresh: float):
     """Fast NMS: suppress i if any higher-scored valid j overlaps it.
     Same interface as ``nms_bev``."""
-    s, dom = _dominance(boxes, scores, valid, iou_thresh)
-    return _top_kept(s, valid, dom.any(dim=-1), max_out)
+    with span("dodt/nms"):
+        s, dom = _dominance(boxes, scores, valid, iou_thresh)
+        return _top_kept(s, valid, dom.any(dim=-1), max_out)
 
 
 def nms_bev_exact(boxes: torch.Tensor, scores: torch.Tensor,
                   valid: torch.Tensor, max_out: int, iou_thresh: float):
     """Exact greedy NMS via fixpoint iteration of the fast pass. Same
     interface as ``nms_bev``."""
-    s, dom = _dominance(boxes, scores, valid, iou_thresh)
-    supp = dom.any(dim=-1)
-    for _ in range(boxes.shape[-2]):
-        new = (dom & ~supp[..., None, :]).any(dim=-1)
-        if torch.equal(new, supp):
-            break
-        supp = new
-    return _top_kept(s, valid, supp, max_out)
+    with span("dodt/nms"):
+        s, dom = _dominance(boxes, scores, valid, iou_thresh)
+        supp = dom.any(dim=-1)
+        for _ in range(boxes.shape[-2]):
+            with span("dodt/nms_pass"):
+                new = (dom & ~supp[..., None, :]).any(dim=-1)
+                if torch.equal(new, supp):
+                    break
+                supp = new
+        return _top_kept(s, valid, supp, max_out)
 
 
 def nms_bev_mode(mode: str):

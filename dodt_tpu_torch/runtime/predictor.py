@@ -14,7 +14,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dodt_tpu_torch.utils.metrics import latency_stats
+from dodt_tpu_torch.utils.metrics import latency_stats, span
 from dodt_tpu_torch.ops.warp import transform_anchors_xz, warp_bev_features
 
 
@@ -66,28 +66,38 @@ class StreamingPredictor:
         With fetch=False the outputs stay on the device as tensors and
         nothing waits for the device; with fetch=True they come back as
         numpy arrays and the step's wall time is recorded.
+
+        Under a profiler the call is the span ``dodt/keyframe``, with
+        ``dodt/upload``, ``dodt/encode``, ``dodt/warp``, ``dodt/pair``
+        and ``dodt/fetch`` inside it.
         """
-        batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
-                 for k, v in frame_batch.items()}
-        t0 = time.perf_counter()
-        state = self.model.encode_frame(batch)
-        prev, self._state = self._state, state
-        if prev is None:
-            if fetch:
-                self._sync()
-                self.encode_times.append(time.perf_counter() - t0)
-            return None
-        if ego_to_prev is not None:
-            a2, b2 = (torch.as_tensor(np.asarray(v, np.float32),
-                                      device=self.device)
-                      for v in ego_to_prev)
-            state = self.warp_state(state, a2, b2)
-        out = self.model.pair_stage(prev, state)
-        if not fetch:
-            return out
-        host = {k: v.cpu().numpy() for k, v in out.items()}
-        self.pair_times.append(time.perf_counter() - t0)
-        return host
+        with span("dodt/keyframe"):
+            with span("dodt/upload"):
+                batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                         for k, v in frame_batch.items()}
+            t0 = time.perf_counter()
+            with span("dodt/encode"):
+                state = self.model.encode_frame(batch)
+            prev, self._state = self._state, state
+            if prev is None:
+                if fetch:
+                    self._sync()
+                    self.encode_times.append(time.perf_counter() - t0)
+                return None
+            if ego_to_prev is not None:
+                with span("dodt/warp"):
+                    a2, b2 = (torch.as_tensor(np.asarray(v, np.float32),
+                                              device=self.device)
+                              for v in ego_to_prev)
+                    state = self.warp_state(state, a2, b2)
+            with span("dodt/pair"):
+                out = self.model.pair_stage(prev, state)
+            if not fetch:
+                return out
+            with span("dodt/fetch"):
+                host = {k: v.cpu().numpy() for k, v in out.items()}
+            self.pair_times.append(time.perf_counter() - t0)
+            return host
 
     def latency_stats(self) -> Dict:
         """``encode_cold``: the stream's first encode, which includes the

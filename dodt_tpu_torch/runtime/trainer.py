@@ -46,7 +46,7 @@ import torch
 from dodt_tpu_torch.config import PipelineConfig
 from dodt_tpu_torch.models import dt_avod
 from dodt_tpu_torch.parallel import mesh as mesh_lib
-from dodt_tpu_torch.utils.metrics import MetricsLogger
+from dodt_tpu_torch.utils.metrics import MetricsLogger, span
 
 Params = Dict[str, torch.Tensor]
 SEED = 42                    # the JAX Trainer's PRNGKey(42)
@@ -253,19 +253,22 @@ def make_train_step(cfg: PipelineConfig, model: torch.nn.Module,
         out = torch.func.functional_call(
             model, params, (batch,),
             {"mode": "train", "train": True, "rand": rand})
-        total, losses = loss_fn(cfg, out, batch, rand)
-        grads = torch.autograd.grad(total, list(params.values()),
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(p) if gr is None else gr
-                 for (k, p), gr in zip(params.items(), grads)}
+        with span("dodt/losses"):
+            total, losses = loss_fn(cfg, out, batch, rand)
+        with span("dodt/backward"):
+            grads = torch.autograd.grad(total, list(params.values()),
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(p) if gr is None else gr
+                     for (k, p), gr in zip(params.items(), grads)}
         if mesh is not None:
-            grads, losses, over_data = mesh_lib.reduce_over_data(
-                grads, losses, mesh)
-            grads, over_model = mesh_lib.mean_over_model(grads, sharded,
-                                                         mesh)
+            with span("dodt/all_reduce"):
+                grads, losses, over_data = mesh_lib.reduce_over_data(
+                    grads, losses, mesh)
+                grads, over_model = mesh_lib.mean_over_model(grads, sharded,
+                                                             mesh)
             step_fn.reduced_bytes = over_data + over_model
-        updates, opt_state = tx.update(grads, state.opt_state)
-        with torch.no_grad():
+        with span("dodt/optimizer"), torch.no_grad():
+            updates, opt_state = tx.update(grads, state.opt_state)
             new_params = {k: p.detach() + updates[k]
                           for k, p in params.items()}
             ema = state.ema_params
@@ -501,7 +504,14 @@ class Trainer:
               prefetch: int = 2):
         """Train loop; a background thread loads and copies the next
         ``prefetch`` batches while the card runs the current step.
-        Returns (final state, logged history)."""
+        Returns (final state, logged history).
+
+        Under a profiler each iteration is the span ``dodt/train_step``,
+        holding ``dodt/data_wait``, the step function's spans
+        (``dodt/forward``, ``dodt/losses``, ``dodt/backward``,
+        ``dodt/all_reduce`` on a mesh, ``dodt/optimizer``), and at log
+        and checkpoint points ``dodt/log`` (the loss fetch) and
+        ``dodt/save``."""
         state = self.init_or_restore()
         max_steps = max_steps or self.cfg.train.max_iterations
         history = []
@@ -550,30 +560,34 @@ class Trainer:
         try:
             with anomaly:
                 while step < max_steps:
-                    batch = (_next_prefetched() if producer
-                             else self._device_batch())
-                    state, losses = self.step_fn(state, batch,
-                                                 self.draws(step))
-                    if self.cfg.train.debug_nans and not bool(
-                            torch.isfinite(losses["total"])):
-                        raise FloatingPointError(
-                            f"non-finite loss at step {step}: {losses}")
-                    window.append(losses)
-                    step += 1
-                    if step % log_every == 0 or step == max_steps:
-                        logged = {k: float(torch.stack(
-                            [w[k] for w in window]).mean())
-                            for k in window[0]}
-                        window = []
-                        logged["step"] = step
-                        logged["wall_s"] = time.time() - t0
-                        history.append(logged)
-                        self.metrics.log(step, **{k: v for k, v
-                                                  in logged.items()
-                                                  if k != "step"})
-                    if step % self.cfg.train.checkpoint_interval == 0 or \
-                            step == max_steps:
-                        self.save(step, state)
+                    with span("dodt/train_step"):
+                        with span("dodt/data_wait"):
+                            batch = (_next_prefetched() if producer
+                                     else self._device_batch())
+                        state, losses = self.step_fn(state, batch,
+                                                     self.draws(step))
+                        if self.cfg.train.debug_nans and not bool(
+                                torch.isfinite(losses["total"])):
+                            raise FloatingPointError(
+                                f"non-finite loss at step {step}: {losses}")
+                        window.append(losses)
+                        step += 1
+                        if step % log_every == 0 or step == max_steps:
+                            with span("dodt/log"):
+                                logged = {k: float(torch.stack(
+                                    [w[k] for w in window]).mean())
+                                    for k in window[0]}
+                            window = []
+                            logged["step"] = step
+                            logged["wall_s"] = time.time() - t0
+                            history.append(logged)
+                            self.metrics.log(step, **{
+                                k: v for k, v in logged.items()
+                                if k != "step"})
+                        if step % self.cfg.train.checkpoint_interval == 0 \
+                                or step == max_steps:
+                            with span("dodt/save"):
+                                self.save(step, state)
         finally:
             stop.set()
             if producer is not None:

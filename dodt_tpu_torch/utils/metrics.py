@@ -1,7 +1,7 @@
 """Metrics logging, latency statistics and profiling helpers (PyTorch
 port of dodt_tpu/utils/metrics.py): the JSONL metrics log, latency
-statistics, a device fence, a ``torch.profiler`` trace and a host/device
-step timer."""
+statistics, a device fence, a ``torch.profiler`` trace, and the named
+spans the port marks its layers with (``span``)."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +12,24 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named span of the port's work, ``with span("dodt/encode"):``.
+
+    While a profiler records it is ``torch.profiler.record_function(name)``:
+    a host event on the profiler's clock, so the device's kernels and idle
+    gaps can be put down to the span that was open, and its parent is the
+    span that contains it. Otherwise it is one shared null context: one
+    flag check, no object made, nothing recorded. The flag is torch's
+    process-wide one, set while any profiler runs. Every name starts with
+    ``dodt/``."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _NO_SPAN
 
 
 class MetricsLogger:
@@ -73,7 +91,9 @@ def latency_stats(times_s) -> Dict[str, float]:
 def profile_trace(log_dir: str, enabled: bool = True):
     """``torch.profiler`` over the block (CPU, and CUDA where a card is
     present), its chrome trace written to ``log_dir/trace.json`` (open in
-    Perfetto or chrome://tracing)."""
+    Perfetto or chrome://tracing). The port's ``dodt/`` spans (``span``)
+    appear in it as ``user_annotation`` events on the profiler's clock,
+    beside the operators, runtime calls and kernels they contain."""
     if not enabled:
         yield None
         return
@@ -85,35 +105,3 @@ def profile_trace(log_dir: str, enabled: bool = True):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Accumulates host/device split timings for the train loop; a device
-    interval ends once ``device_sync`` of its result returns."""
-
-    def __init__(self):
-        self.host_times: List[float] = []
-        self.device_times: List[float] = []
-        self._t0 = None
-
-    def host_start(self):
-        self._t0 = time.perf_counter()
-
-    def host_stop(self):
-        self.host_times.append(time.perf_counter() - self._t0)
-
-    def device_start(self):
-        self._t0 = time.perf_counter()
-
-    def device_stop(self, result=None):
-        if result is not None:
-            device_sync(result)
-        self.device_times.append(time.perf_counter() - self._t0)
-
-    def stats(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        if self.host_times:
-            out["host"] = latency_stats(self.host_times)
-        if self.device_times:
-            out["device"] = latency_stats(self.device_times)
-        return out
