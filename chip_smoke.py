@@ -20,7 +20,9 @@ and its reason on stdout and stderr, and prints no result:
      bf16 inputs (a bf16 volume)), and time both after warm-up (timed():
      per-call time through the wrapper, device time with the host out
      of the way, host time per enqueue); B4's gradient route against
-     the twin's autograd;
+     the twin's autograd; the exact NMS's fixpoint kernel bit for bit
+     against its plain loop at N = 300, 1200 and 4096 (the second
+     stage's, the RPN's at eval and in training), timed;
   3. run the full-width cars_dt_tracking slice (seeded random weights,
      make_batch inputs, 65536 points) through StreamingPredictor on
      the static arm and the ego-motion arm; outputs must be finite and
@@ -32,8 +34,10 @@ and its reason on stdout and stderr, and prints no result:
   5. run the full-width monolithic pair forward (DtAvodNet.forward, B = 1,
      F = 2, the bench inputs) and time it; outputs must be finite and
      shaped, and B1, B2 and B3's counters, zeroed just before, must grow;
-     then drive B4's public op (correlation, through correlation_cf) on the
-     full-width BEV feature shape with the counters zeroed again;
+     the second stage's time eager against replayed from its CUDA graph
+     (the pair stage of two encoded frames); then drive B4's public op
+     (correlation, through correlation_cf) on the full-width BEV feature
+     shape with the counters zeroed again;
   6. run the monolithic forward of the small config at B = 2 on the card
      and on the CPU with the same weights and compare them;
   7. train the full-width cars_dt_tracking model (B = 1 couple, train=True:
@@ -707,6 +711,103 @@ def kernel_lines(res, card):
     return lines
 
 
+NMS_SIZES = {300: (1, 2), 1200: (2,), 4096: (2,)}   # N: leading rows
+
+
+def nms_kernel_checks(dev):
+    """The exact NMS's fixpoint kernel against its plain loop, bit for
+    bit, at the main paths' N (NMS_SIZES: the second stage's final NMS
+    over (B, F) = (1, 2) rows, the RPN's over two frame rows at eval and
+    in training), on clustered car-sized boxes with tied scores; timed()
+    beside the plain loop (one host sync a pass), bound by the bytes of
+    the dominance matrix. Returns the N = 300 numbers and ``by_n``."""
+    import torch
+    from dodt_tpu_torch.ops import nms
+    by_n = {}
+    for n, lead in NMS_SIZES.items():
+        g = torch.Generator().manual_seed(n)
+        centres = torch.rand(lead + (n // 8 + 1, 2), generator=g) * 0.9 + 0.05
+        pick = torch.randint(0, centres.shape[-2], lead + (n,), generator=g)
+        c = torch.gather(centres, -2, pick[..., None].expand(lead + (n, 2)))
+        c = c + 0.01 * torch.randn(lead + (n, 2), generator=g)
+        half = (torch.rand(lead + (n, 2), generator=g) * 2.0 + 1.0) / 70.0
+        boxes = torch.cat([c - half, c + half], -1).to(dev)
+        scores = (torch.round(torch.rand(lead + (n,), generator=g) * 16)
+                  / 16).to(dev)
+        valid = (torch.rand(lead + (n,), generator=g) > 0.2).to(dev)
+        _, dom = nms._dominance(boxes, scores, valid, 0.01)
+        got, want = nms.fixpoint(dom), nms.fixpoint_plain(dom)
+        check(torch.equal(got, want),
+              f"the NMS fixpoint kernel differs from its plain loop at {n}")
+        passes = 0
+        supp = torch.zeros_like(want)
+        while True:
+            new = (dom & ~supp[..., None, :]).any(dim=-1)
+            passes += 1
+            if torch.equal(new, supp):
+                break
+            supp = new
+        r = timed(lambda: nms.fixpoint(dom))
+        r["plain_ms"] = cuda_time_ms(lambda: nms.fixpoint_plain(dom))
+        r["bound_ms"], r["bound_by"] = bound(0, PEAK_F32,
+                                             nbytes(dom, got))
+        r["passes"] = passes
+        r["rows"] = int(got.numel() // n)
+        by_n[n] = r
+        log(f"nms fixpoint N = {n}, {r['rows']} rows, {passes} passes: "
+            f"kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms")
+    return {**by_n[300], "max_abs_err": 0.0, "library_ms": None,
+            "by_n": by_n}
+
+
+def second_stage_times(model, batch, n=10):
+    """The pair stage's second stage at full width on two encoded frames,
+    eager (``_second_stage`` on the stacked states, as before the graph)
+    and replayed (``pair_stage``), the replay bit-equal to the eager
+    call: per arm the median over n calls of the host's ms to issue a
+    call and of the call's ms to a synchronize (timed()'s sleep cannot
+    hold the eager stage: its hundreds of launches fill the card's
+    queue)."""
+    import torch
+    from dodt_tpu_torch.models.dt_avod import FINAL_KEYS
+    dev = next(model.parameters()).device
+    a, b = (model.encode_frame({k: torch.as_tensor(v, device=dev)
+                                for k, v in f.items()})
+            for f in frames_of(batch))
+    keys = ("bev_feats", "img_feats", "top_anchors", "top_valid")
+
+    @torch.no_grad()
+    def eager():
+        return model._second_stage(
+            *(torch.stack([a[k], b[k]], 1) for k in keys),
+            a["ground_plane"], a["p2"], a["orig_image_shape"].float(), 0.0)
+
+    want = eager()
+    got = model.pair_stage(a, b)
+    for k in FINAL_KEYS:
+        check(torch.equal(got[k], want[k]),
+              f"the replayed pair stage's {k} differs from the eager one")
+    res = {}
+    for arm, fn in (("eager", eager),
+                    ("replayed", lambda: model.pair_stage(a, b))):
+        host, synced = [], []
+        for i in range(n + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i >= 2:
+                host.append((t1 - t0) * 1e3)
+                synced.append((t2 - t0) * 1e3)
+        res[arm] = {"host_ms": float(np.median(host)),
+                    "ms": float(np.median(synced))}
+    log(f"second stage eager {res['eager']}, replayed {res['replayed']}")
+    return res
+
+
 def twin_vjp(a, b, weights, grad, max_displacement, stride_2=1):
     """B3's other backward route: the twin's autograd recomputed from the
     inputs (the port's B3 backward before corr_bottleneck_vjp)."""
@@ -1370,7 +1471,7 @@ def full_width_training(dev, counters):
         f"{[round(float(t), 2) for t in steps_ms]}, median after the first "
         f"{med:.2f} ms, peak device memory {peak:.0f} MiB, launches "
         f"{launches}")
-    b1, b2, b3 = (launches[c.symbol] for c in counters)
+    b1, b2, b3 = (launches[c.symbol] for c in counters[:3])
     check(b3 > 0, "corr_bottleneck (B3) was not launched by training")
     check(b1 == 0 and b2 == 0, "an eval-only kernel (B1/B2) ran in training")
     return med, peak, launches, ckpt, len(differ)
@@ -3999,7 +4100,7 @@ def main():
         return mesh_cards_main()
     sys.path.insert(0, ROOT)
     try:
-        from dodt_tpu_torch.ops import _cuda, conv_chain, correlation
+        from dodt_tpu_torch.ops import _cuda, conv_chain, correlation, nms
         from dodt_tpu_torch.ops import roi_window
     except ImportError as exc:
         return fail(f"cannot import the port ({exc}); run it from the "
@@ -4019,7 +4120,11 @@ def main():
                                    correlation._KERNEL),
                "correlation_cf": ("dodt_tpu_torch/csrc/correlation_cf.cu",
                                   "dodt_tpu/ops/correlation.py:110",
-                                  correlation._CF_KERNEL)}
+                                  correlation._CF_KERNEL),
+               "nms_fixpoint": ("dodt_tpu_torch/csrc/nms_fixpoint.cu",
+                                "none: JAX's lax.while_loop, dodt_tpu/ops/"
+                                "nms.py nms_bev_exact", nms._KERNEL)}
+    with_nms = [*counters, nms._KERNEL]
     try:
         t0 = time.perf_counter()
         lib, compiler_output = _cuda.build()
@@ -4029,21 +4134,23 @@ def main():
         spilled = spills(compiler_output)
         check(not spilled, f"kernels spill registers: {spilled}")
         kern = kernel_checks(dev)
+        kern["nms_fixpoint"] = nms_kernel_checks(dev)
         log("phase 2: kernels agree with their twins")
         cfg, model, batch = full_width(dev)
-        times, launches, pushes = full_slice(cfg, model, batch, counters)
+        times, launches, pushes = full_slice(cfg, model, batch, with_nms)
         log("phase 3: full-width slice ran on both arms")
         cuda_vs_cpu(dev)
         log("phase 4: CUDA slice agrees with the CPU slice")
         pair_ms, fwd_launches, fwd_calls = pair_forward(cfg, model, batch,
-                                                        counters)
+                                                        with_nms)
+        stage = second_stage_times(model, batch)
         del model
         op_launches = correlation_op(dev, correlation._CF_KERNEL)
         log("phase 5: full-width pair forward and B4's public op ran")
         forward_cuda_vs_cpu(dev)
         log("phase 6: CUDA pair forward agrees with the CPU forward")
         step_ms, peak_mib, train_launches, ckpt, grads_differ = \
-            full_width_training(dev, counters)
+            full_width_training(dev, with_nms)
         log("phase 7: full-width training ran through the Trainer")
         train_step_cuda_vs_cpu(dev)
         log("phase 8: CUDA train step agrees with the CPU train step")
@@ -4094,6 +4201,13 @@ def main():
     for arm in ("static", "ego"):
         print(f"steady keyframe ms ({arm} arm): {times[arm]:.4f} on {card}")
     print(f"pair_latency_ms: {pair_ms:.4f} on {card}")
+    print("second stage (pair stage, full width) eager against replayed "
+          "from its CUDA graph, medians of 10 calls: " + "; ".join(
+              f"{arm} host {t['host_ms']:.4f} ms to issue, {t['ms']:.4f} "
+              f"ms to a synchronize" for arm, t in (
+                  ("eager", stage["eager"]),
+                  ("replayed", stage["replayed"])))
+          + f" on {card}")
     print(f"train_step_ms (median, full width, B = 1): {step_ms:.4f}, peak "
           f"device memory {peak_mib:.0f} MiB on {card}")
     print(f"train step gradients twice from one state: {grads_differ} "
@@ -4206,6 +4320,12 @@ def main():
           f"on {card}")
     for line in kernel_lines(kern, card):
         print(line)
+    for n, r in kern["nms_fixpoint"]["by_n"].items():
+        print(f"nms_fixpoint N = {n} ({r['rows']} rows, {r['passes']} "
+              f"passes): kernel {r['ms']:.4f} ms, device "
+              f"{r['device_ms']:.4f} ms, host {r['host_us']:.1f} us per "
+              f"call, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"plain {r['plain_ms']:.4f} ms on {card}")
     # launches in each path's run, and per keyframe (pushes, the first of
     # each arm encoding only), per pair forward and per train step
     launches_by_path = {k.symbol: {
@@ -4246,6 +4366,10 @@ def main():
         / (mesh_b["couples"] + 2),
         "f32_train_step_vs_cpu": step22["launches"][k.symbol]}
         for k in counters}
+    launches_by_path[nms._KERNEL.symbol] = {
+        "per_keyframe": launches[nms._KERNEL.symbol] / pushes,
+        "per_pair_forward": fwd_launches[nms._KERNEL.symbol] / fwd_calls,
+        "per_train_step": train_launches[nms._KERNEL.symbol] / TRAIN_STEPS}
     launches_by_path[correlation._CF_KERNEL.symbol] = {
         "correlation_op": op_launches,
         "evaluate": ev["launches"][correlation._CF_KERNEL.symbol]
@@ -4258,7 +4382,7 @@ def main():
              "max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "library_device_ms",
              "library_host_us", "bwd_ms", "bwd_ms_twin", "bwd_bound_ms",
-             "bwd_bound_by", "bwd_rel_err_tf32")
+             "bwd_bound_by", "bwd_rel_err_tf32", "by_n")
             if key in kern[name]}}
         for name, (src, rep, k) in sources.items()]}))
     print(card)

@@ -29,6 +29,7 @@ The (…, 2, N) draws rank positives ([..., 0, :]) and negatives
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -41,6 +42,7 @@ from dodt_tpu_torch.config import PipelineConfig
 from dodt_tpu_torch.models.backbone import (GroupNorm, VggPyramid,
                                              preprocess_image,
                                              tower_channels)
+from dodt_tpu_torch.models.graphs import GraphCache
 from dodt_tpu_torch.ops import boxes as box_ops
 from dodt_tpu_torch.ops import sampling
 from dodt_tpu_torch.ops.losses import weighted_smooth_l1
@@ -422,6 +424,16 @@ def bev_anchor_rois(cfg: PipelineConfig, lattice, bev_bottle: torch.Tensor,
     return torch.stack(rois).reshape(m, n, -1)
 
 
+@functools.lru_cache(maxsize=None)
+def _expand_offset(expand: float, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """The ``expand_proposals_xz`` widening [0, 0, 0, e, 0, e] of an
+    anchor, made on the CPU and kept per device (a copy from the host
+    on every call waits for the card)."""
+    return torch.tensor([0.0, 0.0, 0.0, expand, 0.0, expand],
+                        dtype=dtype).to(device)
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     """take_along_axis with idx broadcast over x's trailing dims."""
     extra = x.dim() - idx.dim()
@@ -514,6 +526,8 @@ class DtAvodNet(nn.Module):
         self.lattice = build_bev_lattice(
             ku.area_extents, ku.anchor_strides, cluster_sizes, ku.bev_shape,
             ku.voxel_size, m.rpn.proposal_roi_crop_size)
+        # the second stage's CUDA graphs (_run_second_stage)
+        self.graphs = GraphCache()
 
     @property
     def num_classes(self) -> int:
@@ -714,8 +728,8 @@ class DtAvodNet(nn.Module):
         b, f, k = top_anchors.shape[0:3]
         proj_in = top_anchors
         if expand > 0.0:
-            proj_in = top_anchors + top_anchors.new_tensor(
-                [0.0, 0.0, 0.0, expand, 0.0, expand])
+            proj_in = top_anchors + _expand_offset(expand, top_anchors.dtype,
+                                                   top_anchors.device)
         _, ss_bev_norm = project_to_bev(proj_in, ku.bev_extents)
         ss_img_norm = torch.stack([
             project_to_image_space(anc.reshape(-1, 6), p2_, sh)[1]
@@ -785,6 +799,48 @@ class DtAvodNet(nn.Module):
             out["corr_pred"] = corr_offsets
             out["final_corr_offsets"] = _take(corr_offsets, f_idx[:, 0], 1)
         return out
+
+    def _run_second_stage(self, sources: Sequence, expand: float,
+                          ctx: _TrainCtx = _EVAL,
+                          keys: Optional[Sequence[str]] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """``_second_stage``'s outputs (``keys`` of them, or all) over
+        ``sources``: bev_bf, img_bf, top_anchors, top_valid, gp, p2,
+        img_shapes, each a tensor or a tuple of the pair's two frame
+        tensors (stacked on axis 1), then ctx's path-drop weights bev_w
+        and img_w (None where absent).
+
+        On the card with grad off, no draws (``ctx.rand`` None) and the
+        stage's weights whole on this rank (no tensor-parallel ``Dense``,
+        whose collectives a graph does not hold) it is a replay of a CUDA
+        graph of the stage, captured at the first call of each static
+        signature (``self.graphs``: the inputs' shapes and dtypes,
+        ``expand``, ``ctx.train_mode``, the NMS mode, keyed on the data
+        pointers of the stage's weights); the outputs are clones.
+        Otherwise, in training and on the CPU, it runs eagerly."""
+        def stage(*inputs, c=None):
+            *args, bev_w, img_w = inputs
+            out = self._second_stage(*args, expand, c or _TrainCtx(
+                bev_w=bev_w, img_w=img_w, train_mode=ctx.train_mode))
+            return out if keys is None else {k: out[k] for k in keys}
+
+        first = sources[0][0] if isinstance(sources[0], tuple) \
+            else sources[0]
+        eager = first.device.type != "cuda" or torch.is_grad_enabled()
+        if not eager:
+            mods = [m for mod in ([self.avod_fc] + (
+                [self.bev_corr_bottleneck, self.corr_fc] if self.correlates
+                else [])) for m in mod.modules()]
+            eager = ctx.rand is not None or any(
+                getattr(m, "tp", None) is not None for m in mods)
+            self.graphs.eager += eager
+        if eager:
+            return stage(*(torch.stack(s, 1) if isinstance(s, tuple) else s
+                           for s in sources), c=ctx)
+        params = tuple(p.data_ptr() for m in mods
+                       for p in m.parameters(recurse=False))
+        key = (expand, ctx.train_mode, self.cfg.model.nms_mode)
+        return self.graphs.run(stage, sources, key, params)
 
     # ------------------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor], mode: str = "val",
@@ -868,10 +924,10 @@ class DtAvodNet(nn.Module):
         out["img_mask"] = img_mask
         out["bev_mask"] = bev_mask
         with span("dodt/second_stage"):
-            out.update(self._second_stage(
-                out.pop("bev_feats"), out.pop("img_feats"),
-                out["top_anchors"], out["top_valid"], gps, p2, img_shapes,
-                m.expand_proposals_xz, ctx))
+            out.update(self._run_second_stage(
+                (out.pop("bev_feats"), out.pop("img_feats"),
+                 out["top_anchors"], out["top_valid"], gps, p2, img_shapes,
+                 ctx.bev_w, ctx.img_w), m.expand_proposals_xz, ctx))
         return out
 
     @torch.no_grad()
@@ -904,14 +960,14 @@ class DtAvodNet(nn.Module):
             raise ValueError("pair_stage needs the paired model "
                              "(num_frames=2)")
         def pair(key):
-            return torch.stack([state_a[key], state_b[key]], dim=1)
+            return state_a[key], state_b[key]
 
         with span("dodt/second_stage"):
-            out = self._second_stage(
-                pair("bev_feats"), pair("img_feats"), pair("top_anchors"),
-                pair("top_valid"), state_a["ground_plane"], state_a["p2"],
-                state_a["orig_image_shape"].to(torch.float32), 0.0)
-        return {k: out[k] for k in FINAL_KEYS}
+            return self._run_second_stage(
+                (pair("bev_feats"), pair("img_feats"), pair("top_anchors"),
+                 pair("top_valid"), state_a["ground_plane"], state_a["p2"],
+                 state_a["orig_image_shape"].to(torch.float32), None, None),
+                0.0, keys=FINAL_KEYS)
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

@@ -10,7 +10,8 @@ and a stale library is never loaded.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` as an int; ``CudaKernel`` raises on a non-zero
-return and otherwise counts the launch.
+return and otherwise counts the launch. ``KERNELS`` lists every entry
+point, in the order their modules defined them.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
+KERNELS: List["CudaKernel"] = []
 
 
 def _sources() -> List[Path]:
@@ -119,6 +121,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def __call__(self, device: torch.device, *args) -> None:
         if self._fn is None:

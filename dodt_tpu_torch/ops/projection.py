@@ -2,8 +2,19 @@
 the image (PyTorch port of dodt_tpu/ops/projection.py)."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _bev_ranges(rx: float, rz: float, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """[rx, rz, rx, rz] in ``dtype``, made on the CPU and kept per device:
+    a tensor built from host values on every call is a copy to the card
+    that waits for it, and cannot be captured in a CUDA graph."""
+    return torch.tensor([rx, rz, rx, rz], dtype=dtype).to(device)
 
 
 def project_to_bev(anchors: torch.Tensor, bev_extents):
@@ -23,9 +34,10 @@ def project_to_bev(anchors: torch.Tensor, bev_extents):
     z2 = z_max - (z - half_z) - z_min
     corners = torch.stack([x1, z1, x2, z2], dim=-1)
     rx, rz = float(ext[0, 1] - ext[0, 0]), float(ext[1, 1] - ext[1, 0])
-    ranges = torch.tensor([rx, rz, rx, rz], dtype=anchors.dtype,
-                          device=anchors.device)
-    return corners, corners / ranges
+    # a tensor divisor: a CUDA tensor divided by a Python number is
+    # multiplied by its rounded reciprocal (ops/roi._unit_grid)
+    return corners, corners / _bev_ranges(rx, rz, anchors.dtype,
+                                          anchors.device)
 
 
 def project_to_image_space(anchors: torch.Tensor, p2: torch.Tensor,
@@ -59,8 +71,9 @@ def project_to_image_space(anchors: torch.Tensor, p2: torch.Tensor,
 
 
 def reorder_boxes_yx(boxes_xy: torch.Tensor) -> torch.Tensor:
-    """[x1, y1, x2, y2] -> [y1, x1, y2, x2] (crop-and-resize order)."""
-    return boxes_xy[..., [1, 0, 3, 2]]
+    """[x1, y1, x2, y2] -> [y1, x1, y2, x2] (crop-and-resize order): each
+    corner's pair flipped, with no index tensor copied from the host."""
+    return boxes_xy.unflatten(-1, (2, 2)).flip(-1).flatten(-2)
 
 
 def project_points_to_image(points: torch.Tensor, p2) -> torch.Tensor:

@@ -419,3 +419,209 @@ def test_resize_backward_is_reproducible(dev):
         1e-6 * want.abs().max()
     assert (grads[0].cpu() - xc.grad).abs().max() <= 1e-6 * \
         xc.grad.abs().max()
+
+
+# ------------------------------------------- the exact NMS's fixpoint
+
+
+def _nms_case(g, lead, n):
+    """Car-sized normalised BEV boxes in clusters (so that they overlap),
+    scores on a 1/16 lattice (many exact ties) and a fifth of the rows
+    invalid, with leading axes ``lead``."""
+    centres = torch.rand(lead + (n // 8 + 1, 2), generator=g) * 0.9 + 0.05
+    pick = torch.randint(0, centres.shape[-2], lead + (n,), generator=g)
+    c = torch.gather(centres, -2, pick[..., None].expand(lead + (n, 2)))
+    c = c + 0.01 * torch.randn(lead + (n, 2), generator=g)
+    half = (torch.rand(lead + (n, 2), generator=g) * 2.0 + 1.0) / 70.0
+    boxes = torch.cat([c - half, c + half], -1)
+    scores = torch.round(torch.rand(lead + (n,), generator=g) * 16) / 16
+    valid = torch.rand(lead + (n,), generator=g) > 0.2
+    return boxes, scores, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 301, 1200, 1500, 4096])
+@pytest.mark.parametrize("thresh", [0.01, 0.8])
+@pytest.mark.parametrize("lead", [(1, 2), (2,)])
+def test_nms_fixpoint_kernel_matches_plain(dev, n, thresh, lead):
+    """The kernel's supp, and nms_bev_exact's (indices, valid), are the
+    plain loop's bit for bit: N = 301 packs a byte a lane, 300 and 1500
+    4 bytes, 1200 and 4096 16 bytes (1200 with half a word beyond N);
+    1500 and 4096 keep the packed rows in global scratch (beyond 1344
+    rows)."""
+    from dodt_tpu_torch.ops import nms
+    g = torch.Generator().manual_seed(n + int(100 * thresh) + len(lead))
+    boxes, scores, valid = (t.to(dev) for t in _nms_case(g, lead, n))
+    s, dom = nms._dominance(boxes, scores, valid, thresh)
+    before = nms._KERNEL.launches
+    got = nms.fixpoint(dom)
+    assert nms._KERNEL.launches == before + 1
+    want = nms.fixpoint_plain(dom)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), nms.fixpoint_plain(dom.cpu()))
+    max_out = min(n, 300)
+    gi, gv = nms.nms_bev_exact(boxes, scores, valid, max_out, thresh)
+    wi, wv = nms._top_kept(s, valid, want, max_out)
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+    assert bool(want.any()) and not bool(want.all())
+
+
+# ------------------------------------------- the second stage's graphs
+
+
+def _full_width(dev, num_frames):
+    """The flagship pair (cars_dt_tracking) or the single-frame detector
+    (cars_single_frame) at 65536 points, seeded weights, on the card."""
+    from dodt_tpu_torch.config import cars_dt_tracking, cars_single_frame
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.models.dt_avod import DtAvodNet, init_params
+    cfg = cars_dt_tracking() if num_frames == 2 else cars_single_frame()
+    cfg.dataset.max_points = 65536
+    model = DtAvodNet(cfg, DEFAULT_CAR_CLUSTERS, num_frames=num_frames)
+    init_params(model, torch.Generator().manual_seed(0))
+    return cfg, model.to(dev).eval()
+
+
+def _batches(cfg, dev, num_frames, seeds=(0, 1, 2)):
+    import numpy as np
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
+    out = []
+    for s in seeds:
+        b = make_batch(cfg, np.random.RandomState(s))
+        out.append({k: torch.as_tensor(
+            v[:, :num_frames] if k in ("points", "points_valid", "image")
+            else v, device=dev) for k, v in b.items()})
+    return out
+
+
+def _kernels():
+    from dodt_tpu_torch.ops import correlation, nms, roi_window
+    return {"b2": roi_window._KERNEL, "b3": correlation._KERNEL,
+            "nms": nms._KERNEL}
+
+
+def _same(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        if want[k] is None:
+            assert got[k] is None, k
+        else:
+            assert torch.equal(got[k], want[k]), k
+
+
+def _eager_on_last_inputs(model, expand, keys=None):
+    """The stage run eagerly on the inputs of the last replay (the
+    graph's own input buffers)."""
+    from dodt_tpu_torch.models.dt_avod import _TrainCtx
+    (entry,) = model.graphs._entries.values()
+    *args, bev_w, img_w = entry.inputs
+    with torch.no_grad():
+        out = model._second_stage(*args, expand,
+                                  _TrainCtx(bev_w=bev_w, img_w=img_w))
+    return out if keys is None else {k: out[k] for k in keys}
+
+
+def _check_replays(model, calls, expand, keys):
+    """``calls`` (one per call, inputs in turn) replay after the first:
+    one capture, the counters, the launches of B2, B3 (the pair) and the
+    NMS kernel on every replay, each replay equal to the stage run
+    eagerly on its inputs, and a result held from call i unchanged by
+    call i + 1. Returns the last output."""
+    kernels = _kernels()
+    held, deltas, out = None, [], None
+    for i, call in enumerate(calls):
+        before = {k: c.launches for k, c in kernels.items()}
+        out = call()
+        torch.cuda.synchronize()
+        deltas.append({k: c.launches - before[k] for k, c in kernels.items()})
+        assert (model.graphs.captures, model.graphs.replays,
+                model.graphs.eager) == (1, i, 1)
+        _same({k: out[k] for k in keys},
+              _eager_on_last_inputs(model, expand, keys))
+        if held is not None:
+            _same(held[0], held[1])
+        held = (out, {k: None if v is None else v.clone()
+                      for k, v in out.items()})
+    assert all(d == deltas[0] for d in deltas), deltas
+    assert deltas[0]["b2"] >= 1 and deltas[0]["nms"] >= 1
+    assert deltas[0]["b3"] == int(model.correlates)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_frames", [2, 1])
+def test_forward_replays_equal_eager_calls(dev, num_frames):
+    """The monolithic val forward of the paired and the single-frame
+    presets on three inputs in turn: the second stage replays, equal bit
+    for bit to the stage run eagerly on each call's inputs and to the
+    forward run again with the cache cleared; a replaced weight tensor
+    is captured again."""
+    from dodt_tpu_torch.models.dt_avod import FINAL_KEYS
+    cfg, model = _full_width(dev, num_frames)
+    batches = _batches(cfg, dev, num_frames)
+    order = [0, 1, 2, 0, 1]
+    stage_keys = [k for k in FINAL_KEYS if num_frames == 2
+                  or k != "final_corr_offsets"] + ["proposal_boxes_3d",
+                                                   "cls_logits"]
+    outs = []
+    _check_replays(model, [
+        (lambda s=s: outs.append(model(batches[s], mode="val")) or outs[-1])
+        for s in order], cfg.model.expand_proposals_xz, stage_keys)
+    model.graphs.clear()
+    _same(model(batches[order[-1]], mode="val"), outs[-1])
+    assert model.graphs.captures == 2
+
+    lin = model.avod_fc.out0
+    lin.weight = torch.nn.Parameter(lin.weight.detach() * 2.0)
+    out = model(batches[0], mode="val")
+    assert model.graphs.captures == 3 and len(model.graphs._entries) == 1
+    _same({k: out[k] for k in stage_keys},
+          _eager_on_last_inputs(model, cfg.model.expand_proposals_xz,
+                                stage_keys))
+    assert not torch.equal(out["cls_logits"], outs[0]["cls_logits"])
+
+
+@pytest.mark.cuda
+def test_pair_stage_replays_equal_eager_calls(dev):
+    """The stream's pair stage over three pairs in turn: replays equal to
+    the stage run eagerly on the same states and to a call with the
+    cache cleared, with no host sync inside a replayed call (the sync
+    debug mode raises on one, as the control shows; the profiler records
+    no runtime *Synchronize and the replay's span)."""
+    from torch.profiler import ProfilerActivity, profile
+    from dodt_tpu_torch.models.dt_avod import FINAL_KEYS
+    cfg, model = _full_width(dev, 2)
+    states = [[model.encode_frame({k: v[:, f] if k in (
+        "points", "points_valid", "image") else v for k, v in b.items()})
+        for f in range(2)] for b in _batches(cfg, dev, 2)]
+    order = [0, 1, 2, 0]
+    _check_replays(model, [(lambda s=s: model.pair_stage(*states[s]))
+                           for s in order], 0.0, FINAL_KEYS)
+    with torch.no_grad():
+        a, b = states[1]
+        want = model._second_stage(
+            *(torch.stack([a[k], b[k]], 1) for k in (
+                "bev_feats", "img_feats", "top_anchors", "top_valid")),
+            a["ground_plane"], a["p2"], a["orig_image_shape"].float(), 0.0)
+    _same(model.pair_stage(a, b), {k: want[k] for k in FINAL_KEYS})
+
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.equal(a["top_valid"], b["top_valid"])
+        model.pair_stage(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.pair_stage(a, b)
+    events = prof.events()
+    assert "dodt/graph_replay" in [e.name for e in events]
+    stages = [e.time_range for e in events if e.name == "dodt/second_stage"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    assert stages and not [
+        e.name for e in events if "Synchronize" in e.name and any(
+            r.start <= e.time_range.start <= r.end for r in stages)]
+    model.graphs.clear()
+    _same(model.pair_stage(a, b), {k: want[k] for k in FINAL_KEYS})
