@@ -12,7 +12,11 @@ prints one JSON line per seed with the numbers and their limits. With
 ``--precision float32 --fault <fault>`` the float32 reference in the
 program's place carries a planted train-step fault instead:
 ``altered_loss`` (each step's losses reported 1.5 times what they are)
-or ``unchanged`` (each step hands back the state it was given). With
+or ``unchanged`` (each step hands back the state it was given), and
+for a data-parallel cell (a mix with a ``mesh``) ``half_batch`` (each
+step's update and losses from the first half of its global batch) or
+``no_exchange`` (from rank 0's rows alone, as a step whose ranks leave
+out the all-reduce hands rank 0's state on). With
 ``--precision bfloat16`` the reference at the configuration's own
 precision stands in the program's place: a witness of what that
 rounding alone moves, which sets no limit. The
@@ -35,7 +39,8 @@ def main(argv=None):
     ap.add_argument("--precision", default="float8",
                     choices=("float8", "float32", "bfloat16"))
     ap.add_argument("--fault", default="none",
-                    choices=("none", "altered_loss", "unchanged"))
+                    choices=("none", "altered_loss", "unchanged",
+                             "half_batch", "no_exchange"))
     args = ap.parse_args(argv)
     sys.path[:0] = [ROOT, HERE]
     import run
@@ -49,24 +54,30 @@ def main(argv=None):
     cell = load_cell(ROOT, args.workload)
     entry = load_entry(ROOT, cell.mix["entry"])
     device = torch.device(args.device)
+    rows = {}
+    if args.fault in ("half_batch", "no_exchange"):
+        if "mesh" not in cell.mix:
+            raise SystemExit(f"--fault {args.fault}: {cell.name} runs no "
+                             "mesh")
+        bs = cell.mix["batch_size"]
+        rows["rows"] = (bs // 2 if args.fault == "half_batch"
+                        else bs // cell.mix["mesh"][0])
     for seed in args.seeds:
         ctx = run.Context(cell, seed, 0, False, device)
         from reference.config import PipelineConfig
-        from reference.model import DtAvodNet
         rcfg = PipelineConfig.from_json(json.dumps(cell.config["pipeline"]))
-        shapes = [(n, p.shape) for n, p in DtAvodNet(
-            rcfg, tuple(map(tuple, cell.config["cluster_sizes"])),
-            cell.config["num_frames"]).named_parameters()]
+        shapes = [(n, p.shape) for n, p in cell.family.reference(
+            rcfg, cell.config).named_parameters()]
         weights = make_weights(shapes, seed, device,
                                cell.config["assumed"]["output_scales"])
         cfg, net = check.reference(cell.config, weights, device,
-                                   args.precision)
-        caps = entry.control(ctx, cfg, net, device)
+                                   args.precision, cell.family)
+        caps = entry.control(ctx, cfg, net, device, **rows)
         del net
-        for c in caps if args.fault != "none" else ():
+        for c in caps:
             if args.fault == "altered_loss":
                 c["losses"] = {k: 1.5 * v for k, v in c["losses"].items()}
-            else:
+            elif args.fault == "unchanged":
                 c["before"] = c["after"] = caps[0]["before"]
         notes = []
         numbers = entry.check(ctx, caps, weights, notes=notes)

@@ -78,7 +78,8 @@ def check(ctx, captures, weights, precision="float32", flops=None,
           notes=None) -> Dict[str, float]:
     notes = [] if notes is None else notes
     frames = ctx.frames()
-    _, net = C.reference(ctx.config, weights, ctx.device, precision)
+    _, net = C.reference(ctx.config, weights, ctx.device, precision,
+                         ctx.cell.family)
     numbers = []
     for i, c in enumerate(captures):
         batch = C.on(one_frame(frames[c["cur"]]), ctx.device)

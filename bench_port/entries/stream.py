@@ -127,7 +127,8 @@ def check(ctx, captures, weights, precision="float32", flops=None,
     from reference import model as ref_model
     notes = [] if notes is None else notes
     device, frames = ctx.device, ctx.frames()
-    cfg, net = C.reference(ctx.config, weights, device, precision)
+    cfg, net = C.reference(ctx.config, weights, device, precision,
+                           ctx.cell.family)
     a2, b2 = (torch.as_tensor(np.asarray(v, np.float32), device=device)
               for v in ego(ctx.mix))
     numbers = []

@@ -92,7 +92,7 @@ class StepWrap:
             self.phase = "window"
             self.t0 = time.perf_counter()
         if self.phase == "window":
-            if time.perf_counter() - self.t0 < self.ctx.seconds:
+            if self.window_open():
                 slot = self.sampler.slot(self.window_steps)
                 self.window_steps += 1
                 if slot is None:
@@ -123,6 +123,10 @@ class StepWrap:
         self.traced_steps += 1
         return self.inner(state, batch, rand)
 
+    def window_open(self) -> bool:
+        """Whether the next step is inside the window."""
+        return time.perf_counter() - self.t0 < self.ctx.seconds
+
     def __call__(self, state, batch, rand):
         try:
             return self.step(state, batch, rand)
@@ -130,13 +134,13 @@ class StepWrap:
             self.steps += 1
 
 
-def drive(ctx) -> Run:
+def train_loop(ctx, dataset, mesh=None, wrap_class=StepWrap) -> StepWrap:
+    """``Trainer.train`` of ``ctx.model`` over ``dataset`` (on ``mesh``,
+    where given), its step function wrapped in ``wrap_class``, until the
+    wrapper ends the loop; returns the wrapper."""
     from dodt_tpu_torch.models import dt_avod
     from dodt_tpu_torch.runtime.trainer import Trainer
     mix, dev, model, cfg = ctx.mix, ctx.device, ctx.model, ctx.program_cfg
-    dataset = inputs.PoolDataset(ctx.couples())
-    run = Run()
-    run.samples_per_call = mix["batch_size"]
     k_fuse = cfg.model.rpn.fusion_top_k
     probe: Dict = {}
     real_forward = model.forward
@@ -167,9 +171,9 @@ def drive(ctx) -> Run:
     model.forward = forward
     wrap = None
     try:
-        trainer = Trainer(cfg, model, dataset, ckpt,
+        trainer = Trainer(cfg, model, dataset, ckpt, mesh=mesh,
                           batch_size=mix["batch_size"], device=dev)
-        wrap = StepWrap(trainer.step_fn, ctx, probe, dataset.served)
+        wrap = wrap_class(trainer.step_fn, ctx, probe, dataset.served)
         trainer.step_fn = wrap
         with spy(dt_avod, "top_k", ranked):
             try:
@@ -181,6 +185,13 @@ def drive(ctx) -> Run:
             wrap.prof.close()
         model.__dict__.pop("forward", None)
         shutil.rmtree(ckpt, ignore_errors=True)
+    return wrap
+
+
+def drive(ctx) -> Run:
+    wrap = train_loop(ctx, inputs.PoolDataset(ctx.couples()))
+    run = Run()
+    run.samples_per_call = ctx.mix["batch_size"]
     run.calls = wrap.window_steps
     run.window_s = wrap.t1 - wrap.t0
     if ctx.traced:
@@ -193,14 +204,21 @@ def drive(ctx) -> Run:
 def check(ctx, captures, weights, precision="float32", flops=None,
           notes=None) -> Dict[str, float]:
     return C.train_numbers(ctx.config, weights, ctx.device, ctx.couples(),
-                           captures, precision, flops, notes)
+                           captures, precision, flops, notes,
+                           ctx.cell.family)
 
 
-def control(ctx, cfg, net, device) -> List[Dict]:
+def control(ctx, cfg, net, device, rows=None) -> List[Dict]:
     """The reference ``net``'s own steps from the seed's weights: the
     start's ``checked_steps``, then ``checked_window_steps`` more, kept as
     window steps, on the pool's couples in turn with draws from a
-    generator of its own."""
+    generator of its own.
+
+    With ``rows``, a fault of a data-parallel step: each step's update
+    and losses come from the first ``rows`` rows of its batch alone, with
+    those rows of the batch's draws, while the whole batch's forward
+    gives the draws, proposals and candidates kept (half of the batch
+    left out; the exchange between the ranks left out, rank 0's rows)."""
     from reference import model as ref_model
     from reference import optim as ref_optim
     mix = ctx.mix
@@ -220,9 +238,19 @@ def control(ctx, cfg, net, device) -> List[Dict]:
             return u
         idx = [(step * bs + j) % len(couples) for j in range(bs)]
         before = types.SimpleNamespace(params=params, opt_state=opt)
-        params, opt, losses, _, fwd = ref_optim.train_step(
-            cfg, net, params, opt,
-            C.on(inputs.PoolDataset.batch(couples, idx), device), rand)
+        batch = C.on(inputs.PoolDataset.batch(couples, idx), device)
+        new, new_opt, losses, _, fwd = ref_optim.train_step(
+            cfg, net, params, opt, batch, rand)
+        if rows is not None:
+            whole = C.replay(draws)
+
+            def part(name, shape, whole=whole):
+                return whole(name, (shape[0] * bs // rows,)
+                             + tuple(shape[1:]))[:shape[0]]
+            new, new_opt, losses, _, _ = ref_optim.train_step(
+                cfg, net, params, opt,
+                {k: v[:rows] for k, v in batch.items()}, part)
+        params, opt = new, new_opt
         out.append({"kind": ("start" if step < mix["checked_steps"]
                              else "window"),
                     "step": step, "before": before, "losses": losses,

@@ -30,7 +30,9 @@ draws.
                  part over the frame's largest reference value of that
                  part: the box against the regression, the object logit,
                  the angle head, the correlation offsets
-  loss_gap       a checked train step's relative gap of the total loss
+  loss_gap       the relative gap of the total loss on the first step
+                 and on each checked step of the window (the steps both
+                 sides take from the same parameters)
   rpn_out_gap    the RPN outputs (objectness and offsets) on the sampled
                  mini-batch of the first step and of each checked step of
                  the window (the steps both sides take from the same
@@ -44,6 +46,13 @@ draws.
 
 The start's steps are followed from the seed's weights; a window step
 from the program's state before it (its parameters and Adam state).
+The start's later steps run from the reference's own parameters, after
+Adam's first update, which moves each weight by about the learning
+rate in the direction of its gradient's sign: a near-zero gradient
+entry that the configuration's bfloat16 rounds to the other sign moves
+its weight the other way. Their loss and RPN outputs swing from seed to
+seed with those signs, so they are written as notes and not compared;
+the start's change (``change_gap``) covers those steps.
 The gradient as Adam got it ((mu' - b1 mu) / (1 - b1)), by the same
 worst leaf, is written as a note for the first step and for each window
 step, and not compared: at the configuration's bfloat16 towers it
@@ -66,9 +75,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from reference import model as ref_model
 from reference import optim as ref_optim
 from reference.config import PipelineConfig as RefConfig
+from harness.cells import family_of
 from harness.weights import load_into
 
 MATCH_TOL = 0.05
@@ -76,11 +85,14 @@ GRAD_FLOOR = 1e-3
 
 
 def reference(config: Dict, weights: Dict[str, torch.Tensor],
-              device: torch.device, precision: str = "float32"):
+              device: torch.device, precision: str = "float32",
+              family=None):
+    """The reference's configuration and model of the configuration file
+    ``config``, built by its family (``harness.cells.family_of`` where
+    none is given), holding ``weights``, on ``device``."""
     cfg = RefConfig.from_json(json.dumps(config["pipeline"]))
-    net = ref_model.DtAvodNet(cfg, tuple(map(tuple, config["cluster_sizes"])),
-                              num_frames=config["num_frames"],
-                              precision=precision)
+    family = family or family_of(config)
+    net = family.reference(cfg, config, precision)
     load_into(net, weights)
     return cfg, net.to(device).eval()
 
@@ -266,12 +278,12 @@ def above_floor(norms: Dict[str, float]) -> List[str]:
 
 
 def train_numbers(config, weights, device, couples, captures,
-                  precision="float32", flops=None, notes=None
+                  precision="float32", flops=None, notes=None, family=None
                   ) -> Dict[str, float]:
     """The train entry's comparison (module docstring): captures of kind
     "start" (the first steps, in order) and "window"."""
     from harness.inputs import PoolDataset
-    cfg, net = reference(config, weights, device, precision)
+    cfg, net = reference(config, weights, device, precision, family)
     notes = [] if notes is None else notes
     start = [c for c in captures if c["kind"] == "start"]
     window = [c for c in captures if c["kind"] == "window"]
@@ -318,7 +330,7 @@ def train_numbers(config, weights, device, couples, captures,
         if i > 0:
             # from the reference's own parameters, which Adam's first
             # steps move by round-off where a gradient is near 0
-            del n["rpn_out_gap"]
+            del n["loss_gap"], n["rpn_out_gap"]
         else:
             # a note (module docstring)
             leaf_gap(

@@ -18,7 +18,8 @@ found by ``harness.cells.load_entry``. It exports
                        what the reference ``net`` put in the program's
                        place produces, in the captures' form
 
-Only the entries and this module import the program."""
+Only the entries, the families (``families/``), ``harness/ranks.py``
+and this module import the program."""
 from __future__ import annotations
 
 import contextlib
@@ -65,14 +66,13 @@ class Run:
         self.captures: List[Dict] = []
 
 
-def build_model(program_cfg_json: str, config: Dict):
+def build_model(program_cfg_json: str, config: Dict, family):
     """The program's configuration and model (on the CPU, weights not
-    set) from the configuration file."""
+    set) from the configuration file, built by its ``family``
+    (``harness.cells.family_of``)."""
     from dodt_tpu_torch.config import PipelineConfig
-    from dodt_tpu_torch.models.dt_avod import DtAvodNet
     cfg = PipelineConfig.from_json(program_cfg_json)
-    return cfg, DtAvodNet(cfg, tuple(map(tuple, config["cluster_sizes"])),
-                          num_frames=config["num_frames"])
+    return cfg, family.program(cfg, config)
 
 
 def load(model, weights: Dict, device: torch.device):

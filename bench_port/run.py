@@ -67,7 +67,7 @@ class Context:
         self.mix, self.config = cell.mix, cell.config
         self.rng = inputs.rng_for(seed, 0)
         self._frames = self._couples = None
-        self.setup_s = self.memory_peak = None
+        self.setup_at = self.setup_s = self.memory_peak = None
 
     @property
     def pipeline(self):
@@ -91,22 +91,31 @@ class Context:
                 tuple(d["image_shape"]), d["max_gt_boxes"])
         return self._couples
 
-    def setup_done(self):
+    def setup_done(self, at=None):
+        """Set-up ends now, or at the ``time.time()`` ``at`` where it
+        ended in other processes (an entry's ranks)."""
         import gc
         import torch
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.setup_s = time.time() - T_START
+        if at is None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            at = time.time()
+        self.setup_at = at
+        self.setup_s = at - T_START
         # what set-up made (pools, weights, the program's state) is not
         # scanned again by the collector in the window
         gc.collect()
         gc.freeze()
 
-    def window_done(self):
+    def window_done(self, peak=None):
+        """The window has closed; the device memory peak is this
+        process's, or ``peak`` where the window ran in other processes."""
         import gc
         import torch
         gc.unfreeze()
-        if self.device.type == "cuda":
+        if peak is not None:
+            self.memory_peak = peak
+        elif self.device.type == "cuda":
             self.memory_peak = torch.cuda.max_memory_allocated(self.device)
         else:
             self.memory_peak = 0
@@ -167,7 +176,7 @@ def measure(argv, device=None, root=ROOT):
     from harness.weights import make_weights
     ctx = Context(cell, args.seed, args.seconds, bool(args.trace), device)
     ctx.program_cfg, model = program.build_model(json.dumps(ctx.pipeline),
-                                                 cell.config)
+                                                 cell.config, cell.family)
     weights = make_weights(
         [(n, p.shape) for n, p in model.named_parameters()], args.seed,
         device, cell.config["assumed"]["output_scales"])

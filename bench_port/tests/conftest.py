@@ -38,6 +38,9 @@ def small_mix(mix):
     for k, v in (("warmup_steps", 3), ("span_steps", 2), ("trace_steps", 2)):
         if k in mix:
             mix[k] = v
+    if "mesh" in mix:
+        # two gloo ranks on the CPU, one couple each
+        mix.update(mesh=[2, 1], batch_size=2)
     return mix
 
 
@@ -68,6 +71,44 @@ def make_tiny_root(path):
 @pytest.fixture
 def tiny_root(tmp_path):
     return make_tiny_root(tmp_path)
+
+
+# The data-parallel train cell's entries of BENCHMARK.json: its files
+# (entries/train_dp4.py, traffic/train_dp4.json,
+# limits/cars_dt.train_dp4.json, metrics/all_reduce_ms.py and
+# metrics/mfu.train_dp4.py) are in the benchmark, the cell is not yet
+# (PERF.md, Open questions).
+DP4 = "cars_dt.train_dp4"
+DP4_CELL = {"name": DP4, "config": "cars_dt", "traffic": "train_dp4",
+            "chips": 4,
+            "why": "Trainer.train on a (4, 1) mesh over NCCL, 1 couple a "
+                   "rank, global batch 4, Adam: the flat all-reduce of "
+                   "25.1M gradients a step, the ranks' lock-step"}
+DP4_METRICS = ("train_samples_per_s", "device_idle.train", "idle_ms.forward",
+               "idle_ms.backward", "idle_ms.optimizer", "syncs_per_step",
+               "data_wait_ms")
+DP4_NEW = [{"name": "all_reduce_ms", "unit": "ms", "better": "lower",
+            "source": "device_trace",
+            "layer": "parallel/mesh reduce_over_data",
+            "moves": "train_samples_per_s", "workloads": [DP4]},
+           {"name": "mfu.train_dp4", "unit": "%", "better": "higher",
+            "source": "host_clock", "layer": "device",
+            "moves": "train_samples_per_s", "workloads": [DP4]}]
+
+
+@pytest.fixture
+def dp4_root(tiny_root):
+    """The tiny checkout with the data-parallel train cell's entries
+    added to its BENCHMARK.json."""
+    path = os.path.join(tiny_root, "BENCHMARK.json")
+    bench = json.load(open(path))
+    bench["workloads"].append(DP4_CELL)
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in DP4_METRICS:
+            m["workloads"].append(DP4)
+    bench["per_layer"] += DP4_NEW
+    json.dump(bench, open(path, "w"))
+    return tiny_root
 
 
 def run_cell(root, cell, seed=3000000011, trace=0, seconds=1.0):
