@@ -22,6 +22,19 @@ towers run the conv-chain kernel (B1) on eval paths only, and the
 second-stage BEV crops take ``dt_avod.bev_crop_fn`` (B2 at eval on the
 card).
 
+Under a profiler the forward is the span ``dodt/forward`` and its layers
+the spans DtAvodNet's have, where the work is the same
+(``utils/metrics.span``):
+
+  dodt/rasterize     the per-frame and integrated maps, the anchors and
+                     their empty-anchor mask
+    dodt/integrate   the rasterization of the integrated (F * P) cloud
+  dodt/towers        the three towers over every input, both bottlenecks
+  dodt/rpn           ROIs, fusion, heads, prefilter and NMS
+  dodt/second_stage  per-frame crops, trunk, correlation head, decode and
+                     per-frame NMS
+    dodt/stack_corr  the stack correlation head (``StackCorrHead``)
+
 Randomness comes through ``rand(name, shape)`` as in dt_avod.py:
 
   pathdrop           (B, 3)        path-drop coin flips
@@ -61,6 +74,7 @@ from dodt_tpu_torch.ops.projection import (project_to_bev,
                                            reorder_boxes_yx)
 from dodt_tpu_torch.ops.roi import crop_and_resize
 from dodt_tpu_torch.ops.voxel import bev_maps_from_points
+from dodt_tpu_torch.utils.metrics import span
 
 
 class StackCorrHead(nn.Module):
@@ -151,10 +165,12 @@ class StackAvodNet(nn.Module):
         towers without the conv-chain kernel, the second-stage BEV crops
         in the gather form and keeps train_nms_size proposals; other
         modes run under ``torch.no_grad()``. ``train=True`` turns on
-        dropout and path drop, whose draws come from ``rand``."""
+        dropout and path drop, whose draws come from ``rand``. Under a
+        profiler the call is the span ``dodt/forward`` (module
+        docstring)."""
         grad = contextlib.nullcontext() if mode == "train" \
             else torch.no_grad()
-        with grad:
+        with span("dodt/forward"), grad:
             return self._forward(batch, mode, train, rand)
 
     def _forward(self, batch, mode, train, rand):
@@ -183,36 +199,44 @@ class StackAvodNet(nn.Module):
                                         bg.height_hi, bg.num_slices)
 
         # per-frame BEV maps, and the integrated BEV of all frames' points
-        frame_maps = [rasterize(p, v, gp) for p, v, gp in zip(
-            points.flatten(0, 1), batch["points_valid"].flatten(0, 1),
-            gps.repeat_interleave(f, dim=0))]
-        int_maps = [rasterize(p, v, gp) for p, v, gp in zip(
-            points.reshape(b, -1, 3), batch["points_valid"].reshape(b, -1),
-            gps)]
+        with span("dodt/rasterize"):
+            frame_maps = [rasterize(p, v, gp) for p, v, gp in zip(
+                points.flatten(0, 1), batch["points_valid"].flatten(0, 1),
+                gps.repeat_interleave(f, dim=0))]
+            with span("dodt/integrate"):
+                int_maps = [rasterize(p, v, gp) for p, v, gp in zip(
+                    points.reshape(b, -1, 3),
+                    batch["points_valid"].reshape(b, -1), gps)]
 
-        # anchors on the integrated occupancy
-        sizes = np.asarray(self.cluster_sizes, np.float32)
-        anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
-            ku.area_extents, sizes, ku.anchor_strides, gp)) for gp in gps])
-        n_anchors = anchors.shape[1]
-        anchor_valid = torch.stack([
-            anchor_valid_mask(cfg, self.lattice, mp.occupancy, anc)
-            for mp, anc in zip(int_maps, anchors)])
+            # anchors on the integrated occupancy
+            sizes = np.asarray(self.cluster_sizes, np.float32)
+            anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
+                ku.area_extents, sizes, ku.anchor_strides, gp))
+                for gp in gps])
+            n_anchors = anchors.shape[1]
+            anchor_valid = torch.stack([
+                anchor_valid_mask(cfg, self.lattice, mp.occupancy, anc)
+                for mp, anc in zip(int_maps, anchors)])
 
         fused = not train_mode
         remat = m.remat_towers
-        bev_feats = tower_forward(remat, self.bev_vgg_pyr, torch.stack(
-            [mp.features for mp in frame_maps]), fused)         # (B*F, ...)
-        int_feats = tower_forward(remat, self.int_bev_vgg_pyr, torch.stack(
-            [mp.features for mp in int_maps]), fused)           # (B, ...)
-        img_feats = tower_forward(remat, self.img_vgg_pyr, preprocess_image(
-            batch["image"].flatten(0, 1)), fused)               # (B*F, ...)
-        int_bottle = _resize_to(self.int_bev_bottleneck(int_feats),
-                                ku.bev_shape)
-        # the RPN reads frame 0's image bottleneck only (a per-sample
-        # GroupNorm: the other frames' rows do not change it)
-        img_bottle0 = self.img_bottleneck(
-            img_feats.reshape((b, f) + img_feats.shape[1:])[:, 0])
+        with span("dodt/towers"):
+            bev_feats = tower_forward(remat, self.bev_vgg_pyr, torch.stack(
+                [mp.features for mp in frame_maps]), fused)     # (B*F, ...)
+            int_feats = tower_forward(remat, self.int_bev_vgg_pyr,
+                                      torch.stack([mp.features
+                                                   for mp in int_maps]),
+                                      fused)                    # (B, ...)
+            img_feats = tower_forward(remat, self.img_vgg_pyr,
+                                      preprocess_image(
+                                          batch["image"].flatten(0, 1)),
+                                      fused)                    # (B*F, ...)
+            int_bottle = _resize_to(self.int_bev_bottleneck(int_feats),
+                                    ku.bev_shape)
+            # the RPN reads frame 0's image bottleneck only (a per-sample
+            # GroupNorm: the other frames' rows do not change it)
+            img_bottle0 = self.img_bottleneck(
+                img_feats.reshape((b, f) + img_feats.shape[1:])[:, 0])
 
         img_mask = bev_mask = torch.ones(b, device=dev)
         if drop_paths:
@@ -221,105 +245,116 @@ class StackAvodNet(nn.Module):
         fusion_div = img_mask + bev_mask
 
         # ---- RPN on the integrated BEV + frame-0 image, every anchor ----
-        crop = m.rpn.proposal_roi_crop_size
-        bev_rois = bev_anchor_rois(cfg, self.lattice, int_bottle, anchors)
-        img_rois = torch.stack([
-            crop_and_resize(fm, reorder_boxes_yx(project_to_image_space(
-                anc, p2_, sh)[1]), crop)
-            for fm, anc, p2_, sh in zip(img_bottle0, anchors, p2,
-                                        img_shapes)]).reshape(b, n_anchors,
-                                                              -1)
-        fused_rois = (bev_rois * bev_mask[:, None, None]
-                      + img_rois * img_mask[:, None, None]) \
-            / fusion_div[:, None, None]
-        flat = fused_rois.reshape(b * n_anchors, -1)
-        objectness = self.rpn_cls(flat, drand).reshape(b, n_anchors, 2)
-        rpn_offsets = self.rpn_reg(flat, drand).reshape(b, n_anchors, 6)
+        with span("dodt/rpn"):
+            crop = m.rpn.proposal_roi_crop_size
+            bev_rois = bev_anchor_rois(cfg, self.lattice, int_bottle,
+                                       anchors)
+            img_rois = torch.stack([
+                crop_and_resize(fm, reorder_boxes_yx(project_to_image_space(
+                    anc, p2_, sh)[1]), crop)
+                for fm, anc, p2_, sh in zip(img_bottle0, anchors, p2,
+                                            img_shapes)]).reshape(
+                                                b, n_anchors, -1)
+            fused_rois = (bev_rois * bev_mask[:, None, None]
+                          + img_rois * img_mask[:, None, None]) \
+                / fusion_div[:, None, None]
+            flat = fused_rois.reshape(b * n_anchors, -1)
+            objectness = self.rpn_cls(flat, drand).reshape(b, n_anchors, 2)
+            rpn_offsets = self.rpn_reg(flat, drand).reshape(b, n_anchors, 6)
 
-        proposals = box_ops.offset_to_anchor(anchors, rpn_offsets)
-        _, prop_bev_norm = project_to_bev(proposals, ext)
-        obj_scores = torch.softmax(objectness, dim=-1)[..., 1]
-        obj_scores = torch.where(anchor_valid, obj_scores, -1.0)
-        k_rpn = m.rpn.train_nms_size if train_mode else m.rpn.test_nms_size
-        pre_idx, pre_valid = top_k_prefilter(
-            torch.where(anchor_valid, obj_scores, -1e9), anchor_valid,
-            min(4 * k_rpn, n_anchors))
-        keep, top_valid = nms_bev_mode(m.nms_mode)(  # indices: no graph
-            _take(prop_bev_norm.detach(), pre_idx, 1),
-            _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
-            m.rpn.nms_iou_thresh)
-        top_idx = _take(pre_idx, keep, 1)
-        top_anchors = _take(proposals, top_idx, 1)           # (B, K, 6)
-        top_scores = _take(obj_scores, top_idx, 1)
+            proposals = box_ops.offset_to_anchor(anchors, rpn_offsets)
+            _, prop_bev_norm = project_to_bev(proposals, ext)
+            obj_scores = torch.softmax(objectness, dim=-1)[..., 1]
+            obj_scores = torch.where(anchor_valid, obj_scores, -1.0)
+            k_rpn = (m.rpn.train_nms_size if train_mode
+                     else m.rpn.test_nms_size)
+            pre_idx, pre_valid = top_k_prefilter(
+                torch.where(anchor_valid, obj_scores, -1e9), anchor_valid,
+                min(4 * k_rpn, n_anchors))
+            keep, top_valid = nms_bev_mode(m.nms_mode)(  # indices: no graph
+                _take(prop_bev_norm.detach(), pre_idx, 1),
+                _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
+                m.rpn.nms_iou_thresh)
+            top_idx = _take(pre_idx, keep, 1)
+            top_anchors = _take(proposals, top_idx, 1)       # (B, K, 6)
+            top_scores = _take(obj_scores, top_idx, 1)
 
-        # ---- second stage: shared proposals, per-frame features ------
-        _, ss_bev_norm = project_to_bev(top_anchors, ext)
-        ss_img_norm = torch.stack([
-            project_to_image_space(anc, p2_, sh)[1]
-            for anc, p2_, sh in zip(top_anchors, p2, img_shapes)])
-        ss_bev_yx = reorder_boxes_yx(ss_bev_norm).repeat_interleave(f, 0)
-        ss_img_yx = reorder_boxes_yx(ss_img_norm).repeat_interleave(f, 0)
-        s = m.avod.proposal_roi_crop_size
-        bev_crop = bev_crop_fn(s, m.avod.bev_roi_window, train_mode,
-                               bev_feats.shape[1:], dev)
-        ss_bev_rois = bev_crop(bev_feats, ss_bev_yx)     # (B*F, K, S, S, C)
-        ss_img_rois = torch.stack([crop_and_resize(fm, bx, s) for fm, bx
-                                   in zip(img_feats, ss_img_yx)])
-        k = top_anchors.shape[1]
-        bm = bev_mask.repeat_interleave(f)[:, None, None, None, None]
-        im = img_mask.repeat_interleave(f)[:, None, None, None, None]
-        dv = fusion_div.repeat_interleave(f)[:, None, None, None, None]
-        ss_fused = ((ss_bev_rois * bm + ss_img_rois * im) / dv).reshape(
-            (b, f) + ss_bev_rois.shape[1:])             # (B, F, K, S, S, C)
-        cls_logits, box_offsets, angle_vecs = self.avod_fc(
-            ss_fused.reshape(b * f * k, -1), drand)
-        cls_logits = cls_logits.reshape(b, f, k, self.num_classes)
-        box_offsets = box_offsets.reshape(b, f, k, 10)
-        angle_vecs = angle_vecs.reshape(b, f, k, 2)
+        with span("dodt/second_stage"):
+            # ---- second stage: shared proposals, per-frame features --
+            _, ss_bev_norm = project_to_bev(top_anchors, ext)
+            ss_img_norm = torch.stack([
+                project_to_image_space(anc, p2_, sh)[1]
+                for anc, p2_, sh in zip(top_anchors, p2, img_shapes)])
+            ss_bev_yx = reorder_boxes_yx(ss_bev_norm).repeat_interleave(f, 0)
+            ss_img_yx = reorder_boxes_yx(ss_img_norm).repeat_interleave(f, 0)
+            s = m.avod.proposal_roi_crop_size
+            bev_crop = bev_crop_fn(s, m.avod.bev_roi_window, train_mode,
+                                   bev_feats.shape[1:], dev)
+            # (B*F, K, S, S, C)
+            ss_bev_rois = bev_crop(bev_feats, ss_bev_yx)
+            ss_img_rois = torch.stack([crop_and_resize(fm, bx, s) for fm, bx
+                                       in zip(img_feats, ss_img_yx)])
+            k = top_anchors.shape[1]
+            bm = bev_mask.repeat_interleave(f)[:, None, None, None, None]
+            im = img_mask.repeat_interleave(f)[:, None, None, None, None]
+            dv = fusion_div.repeat_interleave(f)[:, None, None, None, None]
+            ss_fused = ((ss_bev_rois * bm + ss_img_rois * im) / dv
+                        ).reshape((b, f) + ss_bev_rois.shape[1:])
+            # ss_fused: (B, F, K, S, S, C)
+            cls_logits, box_offsets, angle_vecs = self.avod_fc(
+                ss_fused.reshape(b * f * k, -1), drand)
+            cls_logits = cls_logits.reshape(b, f, k, self.num_classes)
+            box_offsets = box_offsets.reshape(b, f, k, 10)
+            angle_vecs = angle_vecs.reshape(b, f, k, 2)
 
-        # ---- stack correlation head (first vs last frame ROIs) -------
-        roi_first = ss_fused[:, 0].reshape((b * k,) + ss_fused.shape[3:])
-        roi_last = ss_fused[:, -1].reshape((b * k,) + ss_fused.shape[3:])
-        coexist_logits, corr_offsets = self.stack_corr(roi_first, roi_last,
-                                                       drand)
-        coexist_logits = coexist_logits.reshape(b, k, 2)
-        corr_offsets = corr_offsets.reshape(b, k, 3)
+            # ---- stack correlation head (first vs last frame ROIs) ---
+            with span("dodt/stack_corr"):
+                roi_first = ss_fused[:, 0].reshape((b * k,)
+                                                   + ss_fused.shape[3:])
+                roi_last = ss_fused[:, -1].reshape((b * k,)
+                                                   + ss_fused.shape[3:])
+                coexist_logits, corr_offsets = self.stack_corr(
+                    roi_first, roi_last, drand)
+                coexist_logits = coexist_logits.reshape(b, k, 2)
+                corr_offsets = corr_offsets.reshape(b, k, 3)
 
-        # ---- decode + per-frame NMS -----------------------------------
-        prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors, fix_lw=True)
-        prop_4c = box_ops.box_3d_to_box_4c(prop_boxes_3d, gps[:, None, :])
-        pred_boxes_3d = box_ops.box_4c_to_box_3d(prop_4c[:, None]
-                                                 + box_offsets,
-                                                 gps[:, None, None, :])
-        pred_orient = box_ops.angle_vector_to_orientation(angle_vecs)
-        pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
-                                                ortho_rotate=True)
-        _, pred_bev_norm = project_to_bev(pred_anchors, ext)
-        cls_softmax = torch.softmax(cls_logits, dim=-1)
-        final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
-        top_valid_bf = top_valid[:, None].expand(b, f, k)
-        f_idx, f_valid = nms_bev_mode(m.nms_mode)(
-            pred_bev_norm, final_scores_all.detach(), top_valid_bf,
-            m.avod.nms_size, m.avod.nms_iou_thresh)
-        coexist = torch.softmax(coexist_logits, dim=-1)[..., 1]
-        return {
-            "anchors": anchors, "anchor_valid": anchor_valid,
-            "objectness": objectness, "rpn_offsets": rpn_offsets,
-            "top_anchors": top_anchors, "top_scores": top_scores,
-            "top_valid": top_valid, "proposal_4c": prop_4c,
-            "cls_logits": cls_logits, "box_offsets": box_offsets,
-            "angle_vectors": angle_vecs,
-            "coexist_logits": coexist_logits, "corr_pred": corr_offsets,
-            "pred_boxes_3d": pred_boxes_3d,
-            "final_indices": f_idx,
-            "final_valid": f_valid & _take(top_valid_bf, f_idx, 2),
-            "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
-            "final_orientations": _take(pred_orient, f_idx, 2),
-            "final_cls_softmax": _take(cls_softmax, f_idx, 2),
-            "final_scores": _take(final_scores_all, f_idx, 2),
-            "final_corr_offsets": _take(corr_offsets, f_idx[:, 0], 1),
-            "final_coexist": _take(coexist, f_idx[:, 0], 1),
-        }
+            # ---- decode + per-frame NMS -------------------------------
+            prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors,
+                                                      fix_lw=True)
+            prop_4c = box_ops.box_3d_to_box_4c(prop_boxes_3d,
+                                               gps[:, None, :])
+            pred_boxes_3d = box_ops.box_4c_to_box_3d(prop_4c[:, None]
+                                                     + box_offsets,
+                                                     gps[:, None, None, :])
+            pred_orient = box_ops.angle_vector_to_orientation(angle_vecs)
+            pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
+                                                    ortho_rotate=True)
+            _, pred_bev_norm = project_to_bev(pred_anchors, ext)
+            cls_softmax = torch.softmax(cls_logits, dim=-1)
+            final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
+            top_valid_bf = top_valid[:, None].expand(b, f, k)
+            f_idx, f_valid = nms_bev_mode(m.nms_mode)(
+                pred_bev_norm, final_scores_all.detach(), top_valid_bf,
+                m.avod.nms_size, m.avod.nms_iou_thresh)
+            coexist = torch.softmax(coexist_logits, dim=-1)[..., 1]
+            return {
+                "anchors": anchors, "anchor_valid": anchor_valid,
+                "objectness": objectness, "rpn_offsets": rpn_offsets,
+                "top_anchors": top_anchors, "top_scores": top_scores,
+                "top_valid": top_valid, "proposal_4c": prop_4c,
+                "cls_logits": cls_logits, "box_offsets": box_offsets,
+                "angle_vectors": angle_vecs,
+                "coexist_logits": coexist_logits, "corr_pred": corr_offsets,
+                "pred_boxes_3d": pred_boxes_3d,
+                "final_indices": f_idx,
+                "final_valid": f_valid & _take(top_valid_bf, f_idx, 2),
+                "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
+                "final_orientations": _take(pred_orient, f_idx, 2),
+                "final_cls_softmax": _take(cls_softmax, f_idx, 2),
+                "final_scores": _take(final_scores_all, f_idx, 2),
+                "final_corr_offsets": _take(corr_offsets, f_idx[:, 0], 1),
+                "final_coexist": _take(coexist, f_idx[:, 0], 1),
+            }
 
 
 def compute_stack_losses(cfg: PipelineConfig,

@@ -1,8 +1,8 @@
 """The port's named spans (``utils/metrics.span``): under a profiler the
-streaming predictor and the train loop mark their layers with ``dodt/``
-events nested as the work is; with no profiler a span is the one shared
-null context. On the CPU at ``unittest_pipeline()`` sizes, random
-weights."""
+streaming predictor, the train loop and the Stack forward mark their
+layers with ``dodt/`` events nested as the work is; with no profiler a
+span is the one shared null context. On the CPU at
+``unittest_pipeline()`` sizes, random weights."""
 import numpy as np
 import pytest
 import torch
@@ -89,6 +89,29 @@ def test_train_step_spans_nest_as_the_work(setup, tmp_path):
                  "log", "save"):
         assert inside(ev, "dodt/train_step", "dodt/" + name), name
     assert inside(ev, "dodt/forward", "dodt/rpn")
+
+
+def test_stack_forward_spans_nest_as_the_work(setup):
+    from dodt_tpu_torch.models.stack import StackAvodNet
+    cfg, ds, _ = setup
+    model = StackAvodNet(cfg, CLUSTERS)
+    dt_avod.init_params(model, torch.Generator().manual_seed(0))
+    batch = ds.next_batch(1, shuffle=False, augment=False)
+    # a stack of four frames: the couple's two, twice
+    per_frame = ("points", "points_valid", "image")
+    stack = {k: torch.as_tensor(np.concatenate([batch[k]] * 2, axis=1)
+                                if k in per_frame else batch[k])
+             for k in per_frame + ("ground_plane", "p2", "orig_image_shape")}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.eval()(stack, mode="val")
+    ev = spans(prof)
+    assert sum(e[0] == "dodt/forward" for e in ev) == 1
+    for name in ("rasterize", "towers", "rpn", "second_stage"):
+        assert inside(ev, "dodt/forward", "dodt/" + name), name
+    assert inside(ev, "dodt/rasterize", "dodt/integrate")
+    assert inside(ev, "dodt/rpn", "dodt/nms")
+    assert inside(ev, "dodt/second_stage", "dodt/stack_corr")
+    assert inside(ev, "dodt/second_stage", "dodt/nms")
 
 
 def test_span_without_a_profiler_is_the_shared_null_context():
