@@ -35,6 +35,13 @@ the spans DtAvodNet's have, where the work is the same
                      per-frame NMS
     dodt/stack_corr  the stack correlation head (``StackCorrHead``)
 
+On the card with grad off and no draws the second stage is a replay of
+a CUDA graph (``models/graphs.GraphCache``, the model's ``graphs``):
+``dodt/second_stage`` then holds the input copies, ``dodt/graph_replay``
+and the output clones, and ``dodt/stack_corr`` and the stage's
+``dodt/nms`` are recorded only at the capture. In training and on the
+CPU it runs eagerly.
+
 Randomness comes through ``rand(name, shape)`` as in dt_avod.py:
 
   pathdrop           (B, 3)        path-drop coin flips
@@ -62,6 +69,7 @@ from dodt_tpu_torch.models.dt_avod import (Bottleneck, FcTrunk, MlpHead,
                                            _take, anchor_valid_mask,
                                            bev_anchor_rois, bev_crop_fn,
                                            tower_forward)
+from dodt_tpu_torch.models.graphs import GraphCache
 from dodt_tpu_torch.ops import boxes as box_ops
 from dodt_tpu_torch.ops import sampling
 from dodt_tpu_torch.ops.anchors import tile_anchors_3d
@@ -144,6 +152,8 @@ class StackAvodNet(nn.Module):
         self.lattice = build_bev_lattice(
             ku.area_extents, ku.anchor_strides, cluster_sizes, ku.bev_shape,
             ku.voxel_size, m.rpn.proposal_roi_crop_size)
+        # the second stage's CUDA graphs (_run_second_stage)
+        self.graphs = GraphCache()
 
     @property
     def num_classes(self) -> int:
@@ -279,82 +289,124 @@ class StackAvodNet(nn.Module):
             top_anchors = _take(proposals, top_idx, 1)       # (B, K, 6)
             top_scores = _take(obj_scores, top_idx, 1)
 
+        out = {"anchors": anchors, "anchor_valid": anchor_valid,
+               "objectness": objectness, "rpn_offsets": rpn_offsets,
+               "top_anchors": top_anchors, "top_scores": top_scores,
+               "top_valid": top_valid}
         with span("dodt/second_stage"):
-            # ---- second stage: shared proposals, per-frame features --
-            _, ss_bev_norm = project_to_bev(top_anchors, ext)
-            ss_img_norm = torch.stack([
-                project_to_image_space(anc, p2_, sh)[1]
-                for anc, p2_, sh in zip(top_anchors, p2, img_shapes)])
-            ss_bev_yx = reorder_boxes_yx(ss_bev_norm).repeat_interleave(f, 0)
-            ss_img_yx = reorder_boxes_yx(ss_img_norm).repeat_interleave(f, 0)
-            s = m.avod.proposal_roi_crop_size
-            bev_crop = bev_crop_fn(s, m.avod.bev_roi_window, train_mode,
-                                   bev_feats.shape[1:], dev)
-            # (B*F, K, S, S, C)
-            ss_bev_rois = bev_crop(bev_feats, ss_bev_yx)
-            ss_img_rois = torch.stack([crop_and_resize(fm, bx, s) for fm, bx
-                                       in zip(img_feats, ss_img_yx)])
-            k = top_anchors.shape[1]
-            bm = bev_mask.repeat_interleave(f)[:, None, None, None, None]
-            im = img_mask.repeat_interleave(f)[:, None, None, None, None]
-            dv = fusion_div.repeat_interleave(f)[:, None, None, None, None]
-            ss_fused = ((ss_bev_rois * bm + ss_img_rois * im) / dv
-                        ).reshape((b, f) + ss_bev_rois.shape[1:])
-            # ss_fused: (B, F, K, S, S, C)
-            cls_logits, box_offsets, angle_vecs = self.avod_fc(
-                ss_fused.reshape(b * f * k, -1), drand)
-            cls_logits = cls_logits.reshape(b, f, k, self.num_classes)
-            box_offsets = box_offsets.reshape(b, f, k, 10)
-            angle_vecs = angle_vecs.reshape(b, f, k, 2)
+            out.update(self._run_second_stage(
+                (bev_feats, img_feats, top_anchors, top_valid, gps, p2,
+                 img_shapes, bev_mask, img_mask), train_mode, drand))
+        return out
 
-            # ---- stack correlation head (first vs last frame ROIs) ---
-            with span("dodt/stack_corr"):
-                roi_first = ss_fused[:, 0].reshape((b * k,)
-                                                   + ss_fused.shape[3:])
-                roi_last = ss_fused[:, -1].reshape((b * k,)
-                                                   + ss_fused.shape[3:])
-                coexist_logits, corr_offsets = self.stack_corr(
-                    roi_first, roi_last, drand)
-                coexist_logits = coexist_logits.reshape(b, k, 2)
-                corr_offsets = corr_offsets.reshape(b, k, 3)
+    def _second_stage(self, bev_feats, img_feats, top_anchors, top_valid,
+                      gps, p2, img_shapes, bev_mask, img_mask,
+                      train_mode: bool = False, rand: Optional[Rand] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The proposals' per-frame crops over (B*F, ...) feature rows,
+        trunk, stack correlation head, decode and per-frame NMS; returns
+        the forward's second-stage outputs. In train mode the BEV crops
+        take the gather form; ``rand`` gives the dropout draws."""
+        m = self.cfg.model
+        ext = self.cfg.dataset.kitti_utils.bev_extents
+        b, k = top_anchors.shape[0], top_anchors.shape[1]
+        f = bev_feats.shape[0] // b
+        _, ss_bev_norm = project_to_bev(top_anchors, ext)
+        ss_img_norm = torch.stack([
+            project_to_image_space(anc, p2_, sh)[1]
+            for anc, p2_, sh in zip(top_anchors, p2, img_shapes)])
+        ss_bev_yx = reorder_boxes_yx(ss_bev_norm).repeat_interleave(f, 0)
+        ss_img_yx = reorder_boxes_yx(ss_img_norm).repeat_interleave(f, 0)
+        s = m.avod.proposal_roi_crop_size
+        bev_crop = bev_crop_fn(s, m.avod.bev_roi_window, train_mode,
+                               bev_feats.shape[1:], bev_feats.device)
+        # (B*F, K, S, S, C)
+        ss_bev_rois = bev_crop(bev_feats, ss_bev_yx)
+        ss_img_rois = torch.stack([crop_and_resize(fm, bx, s) for fm, bx
+                                   in zip(img_feats, ss_img_yx)])
+        fusion_div = img_mask + bev_mask
+        bm = bev_mask.repeat_interleave(f)[:, None, None, None, None]
+        im = img_mask.repeat_interleave(f)[:, None, None, None, None]
+        dv = fusion_div.repeat_interleave(f)[:, None, None, None, None]
+        ss_fused = ((ss_bev_rois * bm + ss_img_rois * im) / dv
+                    ).reshape((b, f) + ss_bev_rois.shape[1:])
+        # ss_fused: (B, F, K, S, S, C)
+        cls_logits, box_offsets, angle_vecs = self.avod_fc(
+            ss_fused.reshape(b * f * k, -1), rand)
+        cls_logits = cls_logits.reshape(b, f, k, self.num_classes)
+        box_offsets = box_offsets.reshape(b, f, k, 10)
+        angle_vecs = angle_vecs.reshape(b, f, k, 2)
 
-            # ---- decode + per-frame NMS -------------------------------
-            prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors,
-                                                      fix_lw=True)
-            prop_4c = box_ops.box_3d_to_box_4c(prop_boxes_3d,
-                                               gps[:, None, :])
-            pred_boxes_3d = box_ops.box_4c_to_box_3d(prop_4c[:, None]
-                                                     + box_offsets,
-                                                     gps[:, None, None, :])
-            pred_orient = box_ops.angle_vector_to_orientation(angle_vecs)
-            pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
-                                                    ortho_rotate=True)
-            _, pred_bev_norm = project_to_bev(pred_anchors, ext)
-            cls_softmax = torch.softmax(cls_logits, dim=-1)
-            final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
-            top_valid_bf = top_valid[:, None].expand(b, f, k)
-            f_idx, f_valid = nms_bev_mode(m.nms_mode)(
-                pred_bev_norm, final_scores_all.detach(), top_valid_bf,
-                m.avod.nms_size, m.avod.nms_iou_thresh)
-            coexist = torch.softmax(coexist_logits, dim=-1)[..., 1]
-            return {
-                "anchors": anchors, "anchor_valid": anchor_valid,
-                "objectness": objectness, "rpn_offsets": rpn_offsets,
-                "top_anchors": top_anchors, "top_scores": top_scores,
-                "top_valid": top_valid, "proposal_4c": prop_4c,
-                "cls_logits": cls_logits, "box_offsets": box_offsets,
-                "angle_vectors": angle_vecs,
-                "coexist_logits": coexist_logits, "corr_pred": corr_offsets,
-                "pred_boxes_3d": pred_boxes_3d,
-                "final_indices": f_idx,
-                "final_valid": f_valid & _take(top_valid_bf, f_idx, 2),
-                "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
-                "final_orientations": _take(pred_orient, f_idx, 2),
-                "final_cls_softmax": _take(cls_softmax, f_idx, 2),
-                "final_scores": _take(final_scores_all, f_idx, 2),
-                "final_corr_offsets": _take(corr_offsets, f_idx[:, 0], 1),
-                "final_coexist": _take(coexist, f_idx[:, 0], 1),
-            }
+        # ---- stack correlation head (first vs last frame ROIs) -------
+        with span("dodt/stack_corr"):
+            roi_first = ss_fused[:, 0].reshape((b * k,) + ss_fused.shape[3:])
+            roi_last = ss_fused[:, -1].reshape((b * k,) + ss_fused.shape[3:])
+            coexist_logits, corr_offsets = self.stack_corr(
+                roi_first, roi_last, rand)
+            coexist_logits = coexist_logits.reshape(b, k, 2)
+            corr_offsets = corr_offsets.reshape(b, k, 3)
+
+        # ---- decode + per-frame NMS -----------------------------------
+        prop_boxes_3d = box_ops.anchors_to_box_3d(top_anchors, fix_lw=True)
+        prop_4c = box_ops.box_3d_to_box_4c(prop_boxes_3d, gps[:, None, :])
+        pred_boxes_3d = box_ops.box_4c_to_box_3d(prop_4c[:, None]
+                                                 + box_offsets,
+                                                 gps[:, None, None, :])
+        pred_orient = box_ops.angle_vector_to_orientation(angle_vecs)
+        pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
+                                                ortho_rotate=True)
+        _, pred_bev_norm = project_to_bev(pred_anchors, ext)
+        cls_softmax = torch.softmax(cls_logits, dim=-1)
+        final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
+        top_valid_bf = top_valid[:, None].expand(b, f, k)
+        f_idx, f_valid = nms_bev_mode(m.nms_mode)(
+            pred_bev_norm, final_scores_all.detach(), top_valid_bf,
+            m.avod.nms_size, m.avod.nms_iou_thresh)
+        coexist = torch.softmax(coexist_logits, dim=-1)[..., 1]
+        return {
+            "proposal_4c": prop_4c,
+            "cls_logits": cls_logits, "box_offsets": box_offsets,
+            "angle_vectors": angle_vecs,
+            "coexist_logits": coexist_logits, "corr_pred": corr_offsets,
+            "pred_boxes_3d": pred_boxes_3d,
+            "final_indices": f_idx,
+            "final_valid": f_valid & _take(top_valid_bf, f_idx, 2),
+            "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
+            "final_orientations": _take(pred_orient, f_idx, 2),
+            "final_cls_softmax": _take(cls_softmax, f_idx, 2),
+            "final_scores": _take(final_scores_all, f_idx, 2),
+            "final_corr_offsets": _take(corr_offsets, f_idx[:, 0], 1),
+            "final_coexist": _take(coexist, f_idx[:, 0], 1),
+        }
+
+    def _run_second_stage(self, sources: Sequence[torch.Tensor],
+                          train_mode: bool, rand: Optional[Rand]
+                          ) -> Dict[str, torch.Tensor]:
+        """``_second_stage(*sources)``. On the card with grad off, no
+        draws and the stage's weights whole on this rank (no
+        tensor-parallel ``Dense``) it is a replay of a CUDA graph of the
+        stage, captured at the first call of each static signature
+        (``self.graphs``: the inputs' shapes and dtypes, ``train_mode``,
+        the NMS mode, keyed on the data pointers of the stage's
+        weights); the outputs are clones. Otherwise, in training and on
+        the CPU, it runs eagerly (``DtAvodNet._run_second_stage``'s
+        rule)."""
+        eager = sources[0].device.type != "cuda" or torch.is_grad_enabled()
+        if not eager:
+            mods = [m for mod in (self.avod_fc, self.stack_corr)
+                    for m in mod.modules()]
+            eager = rand is not None or any(
+                getattr(m, "tp", None) is not None for m in mods)
+            self.graphs.eager += eager
+        if eager:
+            return self._second_stage(*sources, train_mode=train_mode,
+                                      rand=rand)
+        params = tuple(p.data_ptr() for m in mods
+                       for p in m.parameters(recurse=False))
+        return self.graphs.run(
+            lambda *inputs: self._second_stage(*inputs,
+                                               train_mode=train_mode),
+            sources, (train_mode, self.cfg.model.nms_mode), params)
 
 
 def compute_stack_losses(cfg: PipelineConfig,

@@ -521,12 +521,16 @@ def _eager_on_last_inputs(model, expand, keys=None):
     return out if keys is None else {k: out[k] for k in keys}
 
 
-def _check_replays(model, calls, expand, keys):
+def _check_replays(model, calls, expand, keys, eager=None):
     """``calls`` (one per call, inputs in turn) replay after the first:
     one capture, the counters, the launches of B2, B3 (the pair) and the
     NMS kernel on every replay, each replay equal to the stage run
-    eagerly on its inputs, and a result held from call i unchanged by
-    call i + 1. Returns the last output."""
+    eagerly on its inputs (``eager()``, by default
+    ``_eager_on_last_inputs``), and a result held from call i unchanged
+    by call i + 1. Returns the last output."""
+    if eager is None:
+        def eager():
+            return _eager_on_last_inputs(model, expand, keys)
     kernels = _kernels()
     held, deltas, out = None, [], None
     for i, call in enumerate(calls):
@@ -536,15 +540,14 @@ def _check_replays(model, calls, expand, keys):
         deltas.append({k: c.launches - before[k] for k, c in kernels.items()})
         assert (model.graphs.captures, model.graphs.replays,
                 model.graphs.eager) == (1, i, 1)
-        _same({k: out[k] for k in keys},
-              _eager_on_last_inputs(model, expand, keys))
+        _same({k: out[k] for k in keys}, eager())
         if held is not None:
             _same(held[0], held[1])
         held = (out, {k: None if v is None else v.clone()
                       for k, v in out.items()})
     assert all(d == deltas[0] for d in deltas), deltas
     assert deltas[0]["b2"] >= 1 and deltas[0]["nms"] >= 1
-    assert deltas[0]["b3"] == int(model.correlates)
+    assert deltas[0]["b3"] == int(getattr(model, "correlates", False))
     return out
 
 
@@ -579,6 +582,16 @@ def test_forward_replays_equal_eager_calls(dev, num_frames):
           _eager_on_last_inputs(model, cfg.model.expand_proposals_xz,
                                 stage_keys))
     assert not torch.equal(out["cls_logits"], outs[0]["cls_logits"])
+
+
+def _sync_free(events, outer):
+    """The CPU ``outer`` spans of a profile, none of which holds a
+    runtime *Synchronize call."""
+    spans = [e.time_range for e in events if e.name == outer
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    return spans and not [
+        e.name for e in events if "Synchronize" in e.name and any(
+            r.start <= e.time_range.start <= r.end for r in spans)]
 
 
 @pytest.mark.cuda
@@ -618,10 +631,116 @@ def test_pair_stage_replays_equal_eager_calls(dev):
         model.pair_stage(a, b)
     events = prof.events()
     assert "dodt/graph_replay" in [e.name for e in events]
-    stages = [e.time_range for e in events if e.name == "dodt/second_stage"
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    assert stages and not [
-        e.name for e in events if "Synchronize" in e.name and any(
-            r.start <= e.time_range.start <= r.end for r in stages)]
+    assert _sync_free(events, "dodt/second_stage")
     model.graphs.clear()
     _same(model.pair_stage(a, b), {k: want[k] for k in FINAL_KEYS})
+
+
+# the outputs of the Stack's second stage (models/stack._second_stage)
+STACK_STAGE_KEYS = (
+    "proposal_4c", "cls_logits", "box_offsets", "angle_vectors",
+    "coexist_logits", "corr_pred", "pred_boxes_3d", "final_indices",
+    "final_valid", "final_boxes_3d", "final_orientations",
+    "final_cls_softmax", "final_scores", "final_corr_offsets",
+    "final_coexist")
+
+
+def _stack_full_width(dev):
+    """The Stack model as the cell cars_stack.stack_detect builds it:
+    cars_dt_tracking(data_stride=3) with model_name stack_avod_model (4
+    frames), here at 65536 points, seeded weights with the regression
+    outputs of the RPN and the second stage scaled by 1e-2, on the
+    card."""
+    from dodt_tpu_torch.config import cars_dt_tracking
+    from dodt_tpu_torch.data.clusters import DEFAULT_CAR_CLUSTERS
+    from dodt_tpu_torch.models.dt_avod import init_params
+    from dodt_tpu_torch.models.stack import StackAvodNet
+    cfg = cars_dt_tracking(data_stride=3)
+    cfg.model.model_name = "stack_avod_model"
+    cfg.dataset.max_points = 65536
+    model = StackAvodNet(cfg, DEFAULT_CAR_CLUSTERS)
+    init_params(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.rpn_reg.out.weight.mul_(1e-2)
+        model.avod_fc.out1.weight.mul_(1e-2)
+    return cfg, model.to(dev).eval()
+
+
+def _stacks(cfg, dev, seeds):
+    """One 4-frame stack per seed: the couples of two draws in turn."""
+    import numpy as np
+    from dodt_tpu_torch.data.synthetic_scan import make_batch
+    per_frame = ("points", "points_valid", "image")
+    out = []
+    for s in seeds:
+        a, b = (make_batch(cfg, np.random.RandomState(s + d))
+                for d in (0, 1000))
+        out.append({k: torch.as_tensor(
+            np.concatenate([a[k], b[k]], 1) if k in per_frame else a[k],
+            device=dev) for k in a})
+    return out
+
+
+def _stack_eager_on_last_inputs(model):
+    """The Stack's stage run eagerly on the graph's own input buffers."""
+    (entry,) = model.graphs._entries.values()
+    with torch.no_grad():
+        out = model._second_stage(*entry.inputs)
+    assert set(out) == set(STACK_STAGE_KEYS)
+    return out
+
+
+@pytest.mark.cuda
+def test_stack_forward_replays_equal_eager_calls(dev):
+    """The Stack's val forward over four stacks of different draws: one
+    capture, then replays, each equal bit for bit to the stage run
+    eagerly on its inputs, a held result unchanged by the next call, the
+    forward equal to one run with the cache cleared; a replaced weight
+    of the trunk or of the correlation head is captured again; a traced
+    call holds the replay inside ``dodt/second_stage`` and no host sync
+    there."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, model = _stack_full_width(dev)
+    stacks = _stacks(cfg, dev, (0, 1, 2, 3))
+    outs = []
+    _check_replays(model, [
+        (lambda s=s: outs.append(model(stacks[s], mode="val")) or outs[-1])
+        for s in range(4)], 0.0, STACK_STAGE_KEYS,
+        eager=lambda: _stack_eager_on_last_inputs(model))
+    assert int(outs[-1]["final_valid"].sum()) > 0
+    model.graphs.clear()
+    _same(model(stacks[3], mode="val"), outs[-1])
+    assert model.graphs.captures == 2
+
+    for n, lin in enumerate((model.avod_fc.out0,
+                             model.stack_corr.corr_cls.out)):
+        lin.weight = torch.nn.Parameter(lin.weight.detach() * 2.0)
+        out = model(stacks[3], mode="val")
+        assert model.graphs.captures == 3 + n
+        assert len(model.graphs._entries) == 1
+        _same({k: out[k] for k in STACK_STAGE_KEYS},
+              _stack_eager_on_last_inputs(model))
+        key = ("cls_logits", "coexist_logits")[n]
+        assert not torch.equal(out[key], outs[-1][key]), key
+
+    (entry,) = model.graphs._entries.values()
+    sources = tuple(t.clone() for t in entry.inputs)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            model._run_second_stage(sources, False, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model(stacks[0], mode="val")
+    events = prof.events()
+    names = [e.name for e in events]
+    assert "dodt/graph_replay" in names and "dodt/stack_corr" not in names
+    replays = [e.time_range for e in events if e.name == "dodt/graph_replay"]
+    stages = [e.time_range for e in events if e.name == "dodt/second_stage"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    assert replays and all(any(r.start <= p.start and p.end <= r.end
+                               for r in stages) for p in replays)
+    assert _sync_free(events, "dodt/second_stage")

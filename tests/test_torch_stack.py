@@ -178,12 +178,14 @@ def outputs(request, setup):
     model = _port(cfg, params).eval()
     assert (model.lattice is None) == (request.param == "per_anchor")
     got = model(_tb(batch), mode="val")
+    g = model.graphs
     return ({k: np.asarray(v) for k, v in want.items()},
-            {k: v.numpy() for k, v in got.items()})
+            {k: v.numpy() for k, v in got.items()},
+            (g.captures, g.replays, g.eager, len(g._entries)))
 
 
 def test_stack_forward_returns_every_jax_output(outputs):
-    want, got = outputs
+    want, got, _ = outputs
     assert set(got) == set(want) == STACK_KEYS
     for k in STACK_KEYS:
         assert got[k].shape == want[k].shape, k
@@ -194,7 +196,7 @@ def test_stack_forward_returns_every_jax_output(outputs):
 
 @pytest.mark.parametrize("key", sorted(STACK_KEYS))
 def test_stack_forward_output_matches_jax(outputs, key):
-    want, got = outputs
+    want, got, _ = outputs
     w, g = want[key], got[key]
     if key in EXACT or w.dtype == bool or np.issubdtype(w.dtype,
                                                         np.integer):
@@ -202,6 +204,14 @@ def test_stack_forward_output_matches_jax(outputs, key):
     else:
         np.testing.assert_allclose(g, w, rtol=1e-5,
                                    atol=1e-3 if key in LOOSE else 2e-5)
+
+
+def test_stack_second_stage_runs_eagerly_on_the_cpu(outputs):
+    """On the CPU the Stack's second stage runs eagerly: its graph cache
+    captures, replays and counts nothing (the outputs are the ones the
+    tests above hold against JAX; the card's replays are in
+    tests/test_torch_cuda.py)."""
+    assert outputs[2] == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("mode", ["fast", "greedy"])
