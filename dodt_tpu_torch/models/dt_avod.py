@@ -424,6 +424,67 @@ def bev_anchor_rois(cfg: PipelineConfig, lattice, bev_bottle: torch.Tensor,
     return torch.stack(rois).reshape(m, n, -1)
 
 
+def anchors_and_mask(cfg: PipelineConfig, lattice, cluster_sizes, gps,
+                     occupancies) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's anchors (M, N, 6) on its ground plane and their
+    ``anchor_valid_mask`` (M, N) over its occupancy grid."""
+    ku = cfg.dataset.kitti_utils
+    sizes = np.asarray(cluster_sizes, np.float32)
+    anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
+        ku.area_extents, sizes, ku.anchor_strides, gp)) for gp in gps])
+    return anchors, torch.stack([
+        anchor_valid_mask(cfg, lattice, occ, anc)
+        for occ, anc in zip(occupancies, anchors)])
+
+
+def select_proposals(cfg: PipelineConfig, proposals: torch.Tensor,
+                     objectness: torch.Tensor, valid: torch.Tensor,
+                     train_mode: bool) -> Dict[str, torch.Tensor]:
+    """top_anchors, top_scores and top_valid of (M, N, 6) proposals:
+    the prefilter's 4 k best scores, then NMS down to k (test_nms_size,
+    train_nms_size in train mode)."""
+    m = cfg.model
+    _, prop_bev_norm = project_to_bev(proposals,
+                                      cfg.dataset.kitti_utils.bev_extents)
+    obj_scores = torch.softmax(objectness, dim=-1)[..., 1]
+    obj_scores = torch.where(valid, obj_scores, -1.0)
+    k_rpn = m.rpn.train_nms_size if train_mode else m.rpn.test_nms_size
+    pre_idx, pre_valid = top_k_prefilter(
+        torch.where(valid, obj_scores, -1e9), valid,
+        min(4 * k_rpn, proposals.shape[1]))
+    keep, top_valid = nms_bev_mode(m.nms_mode)(  # indices: no graph
+        _take(prop_bev_norm.detach(), pre_idx, 1),
+        _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
+        m.rpn.nms_iou_thresh)
+    top_idx = _take(pre_idx, keep, 1)
+    return {"top_anchors": _take(proposals, top_idx, 1),
+            "top_scores": _take(obj_scores, top_idx, 1),
+            "top_valid": top_valid}
+
+
+def select_finals(cfg: PipelineConfig, pred_boxes_3d: torch.Tensor,
+                  pred_orient: torch.Tensor, cls_logits: torch.Tensor,
+                  top_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The six ``final_*`` outputs of (B, F, K) predictions: NMS of
+    their BEV boxes by best class score down to avod nms_size."""
+    m = cfg.model
+    pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
+                                            ortho_rotate=True)
+    _, pred_bev_norm = project_to_bev(pred_anchors,
+                                      cfg.dataset.kitti_utils.bev_extents)
+    cls_softmax = torch.softmax(cls_logits, dim=-1)
+    final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
+    f_idx, f_valid = nms_bev_mode(m.nms_mode)(
+        pred_bev_norm, final_scores_all.detach(), top_valid,
+        m.avod.nms_size, m.avod.nms_iou_thresh)
+    return {"final_indices": f_idx,
+            "final_valid": f_valid & _take(top_valid, f_idx, 2),
+            "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
+            "final_orientations": _take(pred_orient, f_idx, 2),
+            "final_cls_softmax": _take(cls_softmax, f_idx, 2),
+            "final_scores": _take(final_scores_all, f_idx, 2)}
+
+
 @functools.lru_cache(maxsize=None)
 def _expand_offset(expand: float, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
@@ -566,13 +627,9 @@ class DtAvodNet(nn.Module):
                                          ku.voxel_size, bg.height_lo,
                                          bg.height_hi, bg.num_slices)
                     for p, v, gp in zip(points, points_valid, gps)]
-            sizes = np.asarray(self.cluster_sizes, np.float32)
-            anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
-                ku.area_extents, sizes, ku.anchor_strides, gp))
-                for gp in gps])
-            anchor_valid = torch.stack([
-                anchor_valid_mask(self.cfg, self.lattice, mp.occupancy, anc)
-                for mp, anc in zip(maps, anchors)])
+            anchors, anchor_valid = anchors_and_mask(
+                self.cfg, self.lattice, self.cluster_sizes, gps,
+                [mp.occupancy for mp in maps])
             bev_input = torch.stack([mp.features for mp in maps])
         fused = not ctx.train_mode
         remat = self.cfg.model.remat_towers
@@ -692,26 +749,11 @@ class DtAvodNet(nn.Module):
                              "sel": mb_sel, "pos": mb_pos,
                              "offset_targets": mb_offt}
         # NMS over the candidates, not the appended mini-batch
-        nms_prop = proposals[:, :k_fuse]
-        nms_valid = int_valid[:, :k_fuse]
-
-        _, prop_bev_norm = project_to_bev(nms_prop, ku.bev_extents)
-        obj_scores = torch.softmax(objectness[:, :k_fuse], dim=-1)[..., 1]
-        obj_scores = torch.where(nms_valid, obj_scores, -1.0)
-        k_rpn = (m.rpn.train_nms_size if ctx.train_mode
-                 else m.rpn.test_nms_size)
-        pre_idx, pre_valid = top_k_prefilter(
-            torch.where(nms_valid, obj_scores, -1e9), nms_valid,
-            min(4 * k_rpn, k_fuse))
-        keep, top_valid = nms_bev_mode(m.nms_mode)(  # indices: no graph
-            _take(prop_bev_norm.detach(), pre_idx, 1),
-            _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
-            m.rpn.nms_iou_thresh)
-        top_idx = _take(pre_idx, keep, 1)
         return {"objectness": objectness, "rpn_offsets": rpn_offsets,
-                "top_anchors": _take(nms_prop, top_idx, 1),
-                "top_scores": _take(obj_scores, top_idx, 1),
-                "top_valid": top_valid, **out}
+                **select_proposals(self.cfg, proposals[:, :k_fuse],
+                                   objectness[:, :k_fuse],
+                                   int_valid[:, :k_fuse], ctx.train_mode),
+                **out}
 
     def _second_stage(self, bev_bf, img_bf, top_anchors, top_valid, gp, p2,
                       img_shapes, expand: float, ctx: _TrainCtx = _EVAL
@@ -766,26 +808,14 @@ class DtAvodNet(nn.Module):
         pred_boxes_3d, pred_orient = decode_predictions(
             rep, prop_enc, box_offsets, angle_vecs, gp4)
 
-        pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
-                                                ortho_rotate=True)
-        _, pred_bev_norm = project_to_bev(pred_anchors, ku.bev_extents)
-        cls_softmax = torch.softmax(cls_logits, dim=-1)
-        final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
-        f_idx, f_valid = nms_bev_mode(m.nms_mode)(
-            pred_bev_norm, final_scores_all.detach(), top_valid,
-            m.avod.nms_size, m.avod.nms_iou_thresh)
         out = {
             "proposal_boxes_3d": prop_boxes_3d, "proposal_enc": prop_enc,
             "cls_logits": cls_logits, "box_offsets": box_offsets,
             "angle_vectors": angle_vecs,
             "pred_boxes_3d": pred_boxes_3d,
             "pred_orientations": pred_orient,
-            "final_indices": f_idx,
-            "final_valid": f_valid & _take(top_valid, f_idx, 2),
-            "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
-            "final_orientations": _take(pred_orient, f_idx, 2),
-            "final_cls_softmax": _take(cls_softmax, f_idx, 2),
-            "final_scores": _take(final_scores_all, f_idx, 2),
+            **select_finals(self.cfg, pred_boxes_3d, pred_orient,
+                            cls_logits, top_valid),
         }
         if self.correlates:
             with span("dodt/correlation"):
@@ -797,7 +827,8 @@ class DtAvodNet(nn.Module):
                 corr_offsets = self.corr_fc(corr_rois.reshape(b * k, -1),
                                             ctx.rand).reshape(b, k, 3)
             out["corr_pred"] = corr_offsets
-            out["final_corr_offsets"] = _take(corr_offsets, f_idx[:, 0], 1)
+            out["final_corr_offsets"] = _take(
+                corr_offsets, out["final_indices"][:, 0], 1)
         return out
 
     def _run_second_stage(self, sources: Sequence, expand: float,
@@ -810,37 +841,19 @@ class DtAvodNet(nn.Module):
         tensors (stacked on axis 1), then ctx's path-drop weights bev_w
         and img_w (None where absent).
 
-        On the card with grad off, no draws (``ctx.rand`` None) and the
-        stage's weights whole on this rank (no tensor-parallel ``Dense``,
-        whose collectives a graph does not hold) it is a replay of a CUDA
-        graph of the stage, captured at the first call of each static
-        signature (``self.graphs``: the inputs' shapes and dtypes,
-        ``expand``, ``ctx.train_mode``, the NMS mode, keyed on the data
-        pointers of the stage's weights); the outputs are clones.
-        Otherwise, in training and on the CPU, it runs eagerly."""
-        def stage(*inputs, c=None):
+        A graph replay (keyed on ``expand``, ``ctx.train_mode`` and the
+        NMS mode) or an eager call, by ``GraphCache``'s rule."""
+        def stage(*inputs):
             *args, bev_w, img_w = inputs
-            out = self._second_stage(*args, expand, c or _TrainCtx(
-                bev_w=bev_w, img_w=img_w, train_mode=ctx.train_mode))
+            out = self._second_stage(*args, expand, _TrainCtx(
+                rand=ctx.rand, bev_w=bev_w, img_w=img_w,
+                train_mode=ctx.train_mode))
             return out if keys is None else {k: out[k] for k in keys}
 
-        first = sources[0][0] if isinstance(sources[0], tuple) \
-            else sources[0]
-        eager = first.device.type != "cuda" or torch.is_grad_enabled()
-        if not eager:
-            mods = [m for mod in ([self.avod_fc] + (
-                [self.bev_corr_bottleneck, self.corr_fc] if self.correlates
-                else [])) for m in mod.modules()]
-            eager = ctx.rand is not None or any(
-                getattr(m, "tp", None) is not None for m in mods)
-            self.graphs.eager += eager
-        if eager:
-            return stage(*(torch.stack(s, 1) if isinstance(s, tuple) else s
-                           for s in sources), c=ctx)
-        params = tuple(p.data_ptr() for m in mods
-                       for p in m.parameters(recurse=False))
-        key = (expand, ctx.train_mode, self.cfg.model.nms_mode)
-        return self.graphs.run(stage, sources, key, params)
+        return self.graphs.call(
+            stage, sources, (expand, ctx.train_mode, self.cfg.model.nms_mode),
+            [self.avod_fc] + ([self.bev_corr_bottleneck, self.corr_fc]
+                              if self.correlates else []), ctx.rand)
 
     # ------------------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor], mode: str = "val",

@@ -18,9 +18,18 @@ signature and then replays it as one graph launch:
   still show which kernels the stage ran.
 
 Nothing in the stage may wait for the card or copy from the host: the
-capture raises where it does. Counters: ``captures``, ``replays`` and
-``eager`` (the calls that ran eagerly, the capturing ones among them;
-the caller counts the ones it does not hand to the cache).
+capture raises where it does.
+
+The rule for every stage a model hands to ``GraphCache.call``:
+1. on the CPU (the first input tensor) or with grad on, it runs eagerly,
+   uncounted;
+2. else with draws, or with a tensor-parallel ``Dense`` (``tp`` set,
+   whose collectives a graph does not hold) among the stage's modules,
+   it runs eagerly and counts one in ``eager``;
+3. else it replays, keyed on the caller's key, the inputs' signature and
+   the data pointers of the stage's modules' parameters.
+Counters: ``captures``, ``replays`` and ``eager`` (rule 2's calls and
+the capturing ones).
 """
 from __future__ import annotations
 
@@ -44,13 +53,14 @@ def _signature(src: Source) -> Hashable:
     return (tuple(src.shape), src.dtype, src.device)
 
 
+def _stacked(src: Source) -> Optional[torch.Tensor]:
+    """``src`` as one tensor (or None): a tuple stacked on axis 1."""
+    return torch.stack(src, 1) if isinstance(src, tuple) else src
+
+
 def _materialize(src: Source) -> Optional[torch.Tensor]:
     """A buffer of the cache's own, holding ``src``'s values."""
-    if src is None:
-        return None
-    if isinstance(src, tuple):
-        return torch.stack(src, 1)
-    return src.clone()
+    return src.clone() if isinstance(src, torch.Tensor) else _stacked(src)
 
 
 def _fill(buf: Optional[torch.Tensor], src: Source) -> None:
@@ -99,6 +109,25 @@ class GraphCache:
     # pickle) starts empty
     def __reduce__(self):
         return GraphCache, ()
+
+    def call(self, fn: Callable[..., Dict[str, Optional[torch.Tensor]]],
+             sources: Sequence[Source], key: Hashable,
+             modules: Sequence[torch.nn.Module], rand: Optional[Callable]
+             ) -> Dict[str, Optional[torch.Tensor]]:
+        """``fn(*inputs)`` by the module docstring's rule: eagerly on
+        ``sources`` (tuples stacked on axis 1) or as ``run``'s replay;
+        ``rand`` is the stage's draws (or None)."""
+        first = next(s[0] if isinstance(s, tuple) else s for s in sources
+                     if s is not None)
+        if first.device.type == "cuda" and not torch.is_grad_enabled():
+            subs = [sub for m in modules for sub in m.modules()]
+            if rand is None and all(getattr(sub, "tp", None) is None
+                                    for sub in subs):
+                return self.run(fn, sources, key, tuple(
+                    p.data_ptr() for sub in subs
+                    for p in sub.parameters(recurse=False)))
+            self.eager += 1
+        return fn(*(_stacked(s) for s in sources))
 
     def run(self, fn: Callable[..., Dict[str, Optional[torch.Tensor]]],
             sources: Sequence[Source], key: Hashable,

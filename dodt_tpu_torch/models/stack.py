@@ -35,12 +35,11 @@ the spans DtAvodNet's have, where the work is the same
                      per-frame NMS
     dodt/stack_corr  the stack correlation head (``StackCorrHead``)
 
-On the card with grad off and no draws the second stage is a replay of
-a CUDA graph (``models/graphs.GraphCache``, the model's ``graphs``):
-``dodt/second_stage`` then holds the input copies, ``dodt/graph_replay``
-and the output clones, and ``dodt/stack_corr`` and the stage's
-``dodt/nms`` are recorded only at the capture. In training and on the
-CPU it runs eagerly.
+Where ``GraphCache``'s rule (models/graphs.py) replays the second stage
+as a CUDA graph (the model's ``graphs``), ``dodt/second_stage`` holds
+the input copies, ``dodt/graph_replay`` and the output clones, and
+``dodt/stack_corr`` and the stage's ``dodt/nms`` are recorded only at
+the capture.
 
 Randomness comes through ``rand(name, shape)`` as in dt_avod.py:
 
@@ -56,7 +55,6 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -66,17 +64,16 @@ from dodt_tpu_torch.models.backbone import (VggPyramid, preprocess_image,
                                              tower_channels)
 from dodt_tpu_torch.models.dt_avod import (Bottleneck, FcTrunk, MlpHead,
                                            Rand, _path_drop_masks, _resize_to,
-                                           _take, anchor_valid_mask,
+                                           _take, anchors_and_mask,
                                            bev_anchor_rois, bev_crop_fn,
+                                           select_finals, select_proposals,
                                            tower_forward)
 from dodt_tpu_torch.models.graphs import GraphCache
 from dodt_tpu_torch.ops import boxes as box_ops
 from dodt_tpu_torch.ops import sampling
-from dodt_tpu_torch.ops.anchors import tile_anchors_3d
 from dodt_tpu_torch.ops.dense_rpn import build_bev_lattice
 from dodt_tpu_torch.ops.iou import aligned_iou_matrix
 from dodt_tpu_torch.ops.losses import weighted_smooth_l1
-from dodt_tpu_torch.ops.nms import nms_bev_mode, top_k_prefilter
 from dodt_tpu_torch.ops.projection import (project_to_bev,
                                            project_to_image_space,
                                            reorder_boxes_yx)
@@ -188,7 +185,6 @@ class StackAvodNet(nn.Module):
         ku = cfg.dataset.kitti_utils
         m = cfg.model
         bg = ku.bev_generator
-        ext = ku.bev_extents
         train_mode = mode == "train"
         points = batch["points"]
         b, f = points.shape[0], points.shape[1]
@@ -219,14 +215,10 @@ class StackAvodNet(nn.Module):
                     batch["points_valid"].reshape(b, -1), gps)]
 
             # anchors on the integrated occupancy
-            sizes = np.asarray(self.cluster_sizes, np.float32)
-            anchors = torch.stack([box_ops.box_3d_to_anchor(tile_anchors_3d(
-                ku.area_extents, sizes, ku.anchor_strides, gp))
-                for gp in gps])
+            anchors, anchor_valid = anchors_and_mask(
+                cfg, self.lattice, self.cluster_sizes, gps,
+                [mp.occupancy for mp in int_maps])
             n_anchors = anchors.shape[1]
-            anchor_valid = torch.stack([
-                anchor_valid_mask(cfg, self.lattice, mp.occupancy, anc)
-                for mp, anc in zip(int_maps, anchors)])
 
         fused = not train_mode
         remat = m.remat_towers
@@ -273,30 +265,14 @@ class StackAvodNet(nn.Module):
             rpn_offsets = self.rpn_reg(flat, drand).reshape(b, n_anchors, 6)
 
             proposals = box_ops.offset_to_anchor(anchors, rpn_offsets)
-            _, prop_bev_norm = project_to_bev(proposals, ext)
-            obj_scores = torch.softmax(objectness, dim=-1)[..., 1]
-            obj_scores = torch.where(anchor_valid, obj_scores, -1.0)
-            k_rpn = (m.rpn.train_nms_size if train_mode
-                     else m.rpn.test_nms_size)
-            pre_idx, pre_valid = top_k_prefilter(
-                torch.where(anchor_valid, obj_scores, -1e9), anchor_valid,
-                min(4 * k_rpn, n_anchors))
-            keep, top_valid = nms_bev_mode(m.nms_mode)(  # indices: no graph
-                _take(prop_bev_norm.detach(), pre_idx, 1),
-                _take(obj_scores.detach(), pre_idx, 1), pre_valid, k_rpn,
-                m.rpn.nms_iou_thresh)
-            top_idx = _take(pre_idx, keep, 1)
-            top_anchors = _take(proposals, top_idx, 1)       # (B, K, 6)
-            top_scores = _take(obj_scores, top_idx, 1)
-
-        out = {"anchors": anchors, "anchor_valid": anchor_valid,
-               "objectness": objectness, "rpn_offsets": rpn_offsets,
-               "top_anchors": top_anchors, "top_scores": top_scores,
-               "top_valid": top_valid}
+            out = {"anchors": anchors, "anchor_valid": anchor_valid,
+                   "objectness": objectness, "rpn_offsets": rpn_offsets,
+                   **select_proposals(cfg, proposals, objectness,
+                                      anchor_valid, train_mode)}
         with span("dodt/second_stage"):
             out.update(self._run_second_stage(
-                (bev_feats, img_feats, top_anchors, top_valid, gps, p2,
-                 img_shapes, bev_mask, img_mask), train_mode, drand))
+                (bev_feats, img_feats, out["top_anchors"], out["top_valid"],
+                 gps, p2, img_shapes, bev_mask, img_mask), train_mode, drand))
         return out
 
     def _second_stage(self, bev_feats, img_feats, top_anchors, top_valid,
@@ -353,60 +329,31 @@ class StackAvodNet(nn.Module):
                                                  + box_offsets,
                                                  gps[:, None, None, :])
         pred_orient = box_ops.angle_vector_to_orientation(angle_vecs)
-        pred_anchors = box_ops.box_3d_to_anchor(pred_boxes_3d.detach(),
-                                                ortho_rotate=True)
-        _, pred_bev_norm = project_to_bev(pred_anchors, ext)
-        cls_softmax = torch.softmax(cls_logits, dim=-1)
-        final_scores_all = cls_softmax[..., 1:].amax(dim=-1)
-        top_valid_bf = top_valid[:, None].expand(b, f, k)
-        f_idx, f_valid = nms_bev_mode(m.nms_mode)(
-            pred_bev_norm, final_scores_all.detach(), top_valid_bf,
-            m.avod.nms_size, m.avod.nms_iou_thresh)
+        finals = select_finals(self.cfg, pred_boxes_3d, pred_orient,
+                               cls_logits, top_valid[:, None].expand(b, f, k))
+        f0 = finals["final_indices"][:, 0]
         coexist = torch.softmax(coexist_logits, dim=-1)[..., 1]
         return {
             "proposal_4c": prop_4c,
             "cls_logits": cls_logits, "box_offsets": box_offsets,
             "angle_vectors": angle_vecs,
             "coexist_logits": coexist_logits, "corr_pred": corr_offsets,
-            "pred_boxes_3d": pred_boxes_3d,
-            "final_indices": f_idx,
-            "final_valid": f_valid & _take(top_valid_bf, f_idx, 2),
-            "final_boxes_3d": _take(pred_boxes_3d, f_idx, 2),
-            "final_orientations": _take(pred_orient, f_idx, 2),
-            "final_cls_softmax": _take(cls_softmax, f_idx, 2),
-            "final_scores": _take(final_scores_all, f_idx, 2),
-            "final_corr_offsets": _take(corr_offsets, f_idx[:, 0], 1),
-            "final_coexist": _take(coexist, f_idx[:, 0], 1),
+            "pred_boxes_3d": pred_boxes_3d, **finals,
+            "final_corr_offsets": _take(corr_offsets, f0, 1),
+            "final_coexist": _take(coexist, f0, 1),
         }
 
     def _run_second_stage(self, sources: Sequence[torch.Tensor],
                           train_mode: bool, rand: Optional[Rand]
                           ) -> Dict[str, torch.Tensor]:
-        """``_second_stage(*sources)``. On the card with grad off, no
-        draws and the stage's weights whole on this rank (no
-        tensor-parallel ``Dense``) it is a replay of a CUDA graph of the
-        stage, captured at the first call of each static signature
-        (``self.graphs``: the inputs' shapes and dtypes, ``train_mode``,
-        the NMS mode, keyed on the data pointers of the stage's
-        weights); the outputs are clones. Otherwise, in training and on
-        the CPU, it runs eagerly (``DtAvodNet._run_second_stage``'s
-        rule)."""
-        eager = sources[0].device.type != "cuda" or torch.is_grad_enabled()
-        if not eager:
-            mods = [m for mod in (self.avod_fc, self.stack_corr)
-                    for m in mod.modules()]
-            eager = rand is not None or any(
-                getattr(m, "tp", None) is not None for m in mods)
-            self.graphs.eager += eager
-        if eager:
-            return self._second_stage(*sources, train_mode=train_mode,
-                                      rand=rand)
-        params = tuple(p.data_ptr() for m in mods
-                       for p in m.parameters(recurse=False))
-        return self.graphs.run(
-            lambda *inputs: self._second_stage(*inputs,
-                                               train_mode=train_mode),
-            sources, (train_mode, self.cfg.model.nms_mode), params)
+        """``_second_stage(*sources)``: a graph replay (keyed on
+        ``train_mode`` and the NMS mode) or an eager call, by
+        ``GraphCache``'s rule."""
+        return self.graphs.call(
+            lambda *inputs: self._second_stage(
+                *inputs, train_mode=train_mode, rand=rand),
+            sources, (train_mode, self.cfg.model.nms_mode),
+            (self.avod_fc, self.stack_corr), rand)
 
 
 def compute_stack_losses(cfg: PipelineConfig,

@@ -738,9 +738,65 @@ def test_stack_forward_replays_equal_eager_calls(dev):
     events = prof.events()
     names = [e.name for e in events]
     assert "dodt/graph_replay" in names and "dodt/stack_corr" not in names
-    replays = [e.time_range for e in events if e.name == "dodt/graph_replay"]
+    # host spans only: a span's device-side interval ends when the card
+    # finishes its work, after the host has left the span
+    cpu = torch.autograd.DeviceType.CPU
+    replays = [e.time_range for e in events if e.name == "dodt/graph_replay"
+               and e.device_type == cpu]
     stages = [e.time_range for e in events if e.name == "dodt/second_stage"
-              and e.device_type == torch.autograd.DeviceType.CPU]
+              and e.device_type == cpu]
     assert replays and all(any(r.start <= p.start and p.end <= r.end
                                for r in stages) for p in replays)
     assert _sync_free(events, "dodt/second_stage")
+
+
+def _toy_stage(dev, seed):
+    """A toy stage (two linear layers) on the card, and its inputs: a
+    pair of (5, 4) frames, and a weight."""
+    g = torch.Generator().manual_seed(seed)
+    toy = torch.nn.Sequential(torch.nn.Linear(4, 3),
+                              torch.nn.Linear(3, 2)).to(dev)
+    a, b, w = (torch.randn(s, generator=g).to(dev)
+               for s in ((5, 4), (5, 4), (1,)))
+
+    def fn(x, w):
+        return {"y": toy(x) * w}
+    return toy, fn, (a, b), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["draws", "tp"])
+def test_graph_cache_call_counts_eager_calls_with_draws_or_tp(dev, case):
+    """With draws, or with a tensor-parallel layer (``tp`` set) in the
+    stage, ``GraphCache.call`` runs eagerly on the card, counts each call
+    in ``eager`` and captures nothing."""
+    from dodt_tpu_torch.models.graphs import GraphCache
+    toy, fn, (a, b), w = _toy_stage(dev, 6)
+    rand = None
+    if case == "tp":
+        toy[1].tp = object()
+    else:
+        def rand(name, shape):
+            return torch.rand(shape, device=dev)
+    cache = GraphCache()
+    with torch.no_grad():
+        for i in (1, 2):
+            got = cache.call(fn, ((a, b), w), "toy", [toy], rand)
+            assert (cache.captures, cache.replays, cache.eager,
+                    len(cache._entries)) == (0, 0, i, 0)
+            _same(got, fn(torch.stack([a, b], 1), w))
+
+
+@pytest.mark.cuda
+def test_graph_cache_call_replays_a_toy_stage(dev):
+    """Without grad, draws or ``tp`` a toy stage is captured once, then
+    replayed, each call equal to the stage run eagerly on its inputs."""
+    from dodt_tpu_torch.models.graphs import GraphCache
+    toy, fn, _, _ = _toy_stage(dev, 7)
+    cache = GraphCache()
+    with torch.no_grad():
+        for i, seed in enumerate((8, 9, 10)):
+            _, _, (a, b), w = _toy_stage(dev, seed)
+            got = cache.call(fn, ((a, b), w), "toy", [toy], None)
+            assert (cache.captures, cache.replays, cache.eager) == (1, i, 1)
+            _same(got, fn(torch.stack([a, b], 1), w))

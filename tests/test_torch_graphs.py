@@ -115,3 +115,32 @@ def test_graph_cache_does_not_travel_with_a_copy():
     for other in (copy.deepcopy(model), pickle.loads(pickle.dumps(model))):
         assert isinstance(other.graphs, graphs.GraphCache)
         assert counters(other) == (0, 0, 0, 0)
+
+
+def _toy_stage(seed):
+    """A toy stage (two linear layers) and its inputs: a pair of (5, 4)
+    frames, and a weight."""
+    g = torch.Generator().manual_seed(seed)
+    toy = torch.nn.Sequential(torch.nn.Linear(4, 3), torch.nn.Linear(3, 2))
+    a, b = torch.randn(5, 4, generator=g), torch.randn(5, 4, generator=g)
+
+    def fn(none, x, w):
+        return {"y": toy(x) * w, "none": none}
+    return toy, fn, (a, b), torch.rand(1, generator=g)
+
+
+@pytest.mark.parametrize("case", ["no_grad", "grad", "tuple"])
+def test_graph_cache_call_runs_eagerly_on_the_cpu(case):
+    """On the CPU ``GraphCache.call`` runs the stage eagerly on its
+    inputs (a tuple stacked on axis 1; the first tensor decides the
+    device), with grad off or on, and counts nothing."""
+    toy, fn, (a, b), w = _toy_stage(5)
+    x = (a, b) if case == "tuple" else torch.stack([a, b], 1)
+    cache = graphs.GraphCache()
+    with torch.set_grad_enabled(case == "grad"):
+        got = cache.call(fn, (None, x, w), "toy", [toy], None)
+        want = fn(None, torch.stack([a, b], 1), w)
+    assert (cache.captures, cache.replays, cache.eager,
+            len(cache._entries)) == (0, 0, 0, 0)
+    assert got["none"] is None and torch.equal(got["y"], want["y"])
+    assert got["y"].requires_grad == (case == "grad")

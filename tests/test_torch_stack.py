@@ -44,6 +44,7 @@ from dodt_tpu.runtime.evaluator import Evaluator as JaxEvaluator
 from dodt_tpu_torch import convert
 from dodt_tpu_torch.convert import config_from_json, flax_to_state_dict
 from dodt_tpu_torch.data import stack as tstack_data
+from dodt_tpu_torch.models import dt_avod as tdt_avod
 from dodt_tpu_torch.models import stack as tstack
 from dodt_tpu_torch.ops import nms as tnms
 from dodt_tpu_torch.runtime import trainer as ttrain
@@ -237,7 +238,8 @@ def test_stack_forward_honours_nms_mode(setup, mode, monkeypatch):
             return calls[-1][2]
         return nms
 
-    monkeypatch.setattr(tstack, "nms_bev_mode", spy)
+    # both NMS calls are in the selections the Stack shares with DtAvodNet
+    monkeypatch.setattr(tdt_avod, "nms_bev_mode", spy)
     model = _port(cfg, params).eval()
     got = model(_tb(batch), mode="val")
     assert [c[0] for c in calls] == [mode, mode]
